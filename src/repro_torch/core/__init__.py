@@ -1,0 +1,1 @@
+"""Simulator core of the PyTorch port (see ``repro_torch``)."""
