@@ -7,14 +7,19 @@ Phases (any failure exits non-zero before the result line):
 1. card     -- the card's name and power limit (nvidia-smi);
 2. build    -- nvcc builds the kernels from src/repro_torch/kernels/csrc;
 3. kernels  -- each kernel against its plain PyTorch version on the card,
-               bitwise, at the engine's shapes;
+               bitwise, at the engine's shapes (link_scan with and
+               without the trunk cap);
 4. main     -- ``simulation.run_experiment`` on the card for the 20u_100j
                (paper section 5 scale) and 4u_512j cells, held bitwise
-               against the JAX reference in tests/data/port_ref_main.json;
-               the kernels' launch counters must be above 0 and the plain
-               versions' at 0;
-5. profile  -- the first WINDOW supersteps of 20u_100j under the
-               profiler: device busy time, idle share, top kernels;
+               against the JAX reference in tests/data/port_ref_main.json,
+               then the contended-network cells 20u_100j_net and
+               20u_100j_trunknet (``net_cap=None``) against
+               tests/data/port_ref_net.json; every kernel of a cell's
+               path must be launched (counts zeroed just before the run,
+               read just after) and the plain versions never;
+5. profile  -- the first WINDOW supersteps of 20u_100j and of
+               20u_100j_net under the profiler: device busy time, idle
+               share, top kernels;
 6. times    -- each kernel's device time (profiler) and call time (CUDA
                events) at the main-path shapes, beside its plain version
                and its bound.
@@ -40,8 +45,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 MAIN_CELL = "20u_100j"
-CELLS = ("20u_100j", "4u_512j")
+NET_CELL = "20u_100j_net"
+# cell -> (reference file, the kernels its path runs)
+PATH = ("event_scan", "event_frontier")
+NET_PATH = PATH + ("link_scan",)
+CELLS = {"20u_100j": ("port_ref_main.json", PATH),
+         "4u_512j": ("port_ref_main.json", PATH),
+         "20u_100j_net": ("port_ref_net.json", NET_PATH),
+         "20u_100j_trunknet": ("port_ref_net.json", NET_PATH)}
 SCAN_SHAPES = ((16, 32), (16, 640), (16, 2000), (8, 640))
+LINK_SHAPES = ((16, 640), (16, 32), (8, 2000))
 WINDOW = 300          # supersteps of the main path under the profiler
 
 
@@ -92,6 +105,28 @@ def scan_inputs(r, j, gen, dev):
                       ).to(torch.float32)
     ok = (torch.rand(r, generator=gen) > 0.1).to(torch.float32)
     return tuple(x.to(dev) for x in (rem, tie, mips, npe, pol, blk, ok))
+
+
+def link_inputs(l, t, gen, dev):
+    """Random transfer-slot tables: ~40% free slots, payloads in whole
+    KB so forecasts tie at t_min, an empty row, dead rows (baud 0, at
+    BIG, infinite), fractional background flows, and a trunk cap that
+    binds on about half the rows."""
+    rem = torch.randint(1, 6, (l, t), generator=gen).to(torch.float32)
+    rem = rem * 1024.0
+    rem[torch.rand((l, t), generator=gen) < 0.4] = 0.0
+    rem[1] = 0.0
+    tie = torch.stack([torch.randperm(t, generator=gen) for _ in range(l)]
+                      ).to(torch.float32)
+    tie = torch.where(rem > 0, tie, float(2 ** 30))
+    baud = torch.rand(l, generator=gen) * 5e4 + 1e3
+    baud[2], baud[3], baud[4] = 0.0, 3.0e38, float("inf")
+    bg = torch.tensor([0.0, 0.5, 1.0, 2.5])[
+        torch.randint(0, 4, (l,), generator=gen)]
+    cap = torch.where(torch.rand(l, generator=gen) < 0.5,
+                      torch.rand(l, generator=gen) * 100.0 + 10.0,
+                      torch.tensor(3.0e38))
+    return tuple(x.to(dev) for x in (rem, tie, baud, bg, cap))
 
 
 def engine_layout(n_users, n_jobs, n_res, r_pad):
@@ -146,29 +181,47 @@ def device_ms(fn, kernel=None, reps=100):
 
 
 def load_cells(dev):
+    """Each cell's reference record, gridlets (payloads included for the
+    network cells) and fleet, from the committed reference files."""
     from repro_torch.core import gridlet, resource
-    with open(os.path.join(ROOT, "tests", "data",
-                           "port_ref_main.json")) as f:
-        ref = json.load(f)["cells"]
+    refs = {}
+    for fname, _ in CELLS.values():
+        if fname not in refs:
+            with open(os.path.join(ROOT, "tests", "data", fname)) as f:
+                refs[fname] = json.load(f)["cells"]
 
     def f32(bits):
         return torch.from_numpy(np.asarray(bits, np.uint32).view(
             np.float32).copy())
 
     out = {}
-    for name in CELLS:
-        c = ref[name]
+    for name, (fname, _) in CELLS.items():
+        c = refs[fname][name]
         fl = c["fleet"]
         fleet = resource.make_fleet(
             fl["num_pe"], f32(fl["mips_per_pe"]), f32(fl["cost_per_sec"]),
             fl["policy"], time_zone=f32(fl["time_zone"]),
             baud_rate=f32(fl["baud_rate"]), device=dev)
         u, nj = c["n_users"], c["n_jobs_per_user"]
+        payload = {k: f32(c[k]) for k in ("in_bytes", "out_bytes") if k in c}
         g = gridlet.make_batch(
             f32(c["length_mi"]),
             user=torch.arange(u, dtype=torch.int32).repeat_interleave(nj),
-            device=dev)
+            device=dev, **payload)
         out[name] = (c, g, fleet)
+    return out
+
+
+def experiment_kwargs(c, dev, **kw):
+    """``run_experiment``'s arguments for a reference cell: the network
+    cells add their scenario and the auto-sized transfer table."""
+    from repro_torch.core import simulation
+    out = dict(opt=c["opt"], n_users=c["n_users"], batch=c["batch"],
+               device=dev)
+    if "scenario" in c:
+        out.update(scenario=simulation.Scenario(**c["scenario"]),
+                   net_cap=None)
+    out.update(kw)
     return out
 
 
@@ -241,7 +294,7 @@ def main():
 
     phase("kernels against their plain versions (bitwise)")
     gen = torch.Generator().manual_seed(0)
-    errs = {"event_scan": 0.0, "event_frontier": 0.0}
+    errs = {"event_scan": 0.0, "event_frontier": 0.0, "link_scan": 0.0}
     for r, j in SCAN_SHAPES:
         rem, tie, mips, npe, pol, blk, ok = scan_inputs(r, j, gen, dev)
         kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
@@ -282,24 +335,46 @@ def main():
             if not same:
                 failures.append(f"event_frontier {name}")
 
+    for l, t in LINK_SHAPES:
+        rem, tie, baud, bg, cap = link_inputs(l, t, gen, dev)
+        for form, c in (("private", None), ("trunk cap", cap)):
+            want = ek.link_scan_ref(rem, baud, bg=bg, tie=tie, cap=c)
+            got = ek.link_scan_cuda(rem, baud, bg=bg, tie=tie, cap=c)
+            torch.cuda.synchronize()
+            names = ("rate", "t_min", "argmin", "occ")
+            same = [bits_equal(a, b) for a, b in zip(want, got)]
+            errs["link_scan"] = max([errs["link_scan"]] + [
+                abs_err(a, b) for a, b in zip(want, got)])
+            print(f"link_scan {form:9s} [{l},{t}]: " + " ".join(
+                f"{n}={'ok' if s_ else 'DIFF'}" for n, s_ in zip(names,
+                                                                 same)),
+                flush=True)
+            if not all(same):
+                failures.append(f"link_scan {form} [{l},{t}]")
+
     phase("main path: run_experiment on the card vs the JAX reference")
     from repro_torch.core import simulation
     cells = load_cells(dev)
     launches = {}
-    for name in CELLS:
+    for name, (_, path) in CELLS.items():
         c, g, fleet = cells[name]
         ek.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = simulation.run_experiment(
-            g, fleet, c["deadline"], c["budget"], opt=c["opt"],
-            n_users=c["n_users"], batch=c["batch"], device=dev)
+            g, fleet, c["deadline"], c["budget"], **experiment_kwargs(c, dev))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(ek.LAUNCHES)
         plain = dict(ek.PLAIN_CALLS)
         if name == MAIN_CELL:
-            launches = counts
+            launches.update({k: counts[k] for k in PATH})
+        if name == NET_CELL:
+            launches["link_scan"] = counts["link_scan"]
+            net_steps = int(res.n_steps) + int(res.n_spec)
+            print(f"{name}: per superstep {res.host_syncs / net_steps:.2f} "
+                  f"host syncs, {counts['link_scan'] / net_steps:.2f} "
+                  f"link_scan launches", flush=True)
         bad = check_cell(name, c, res)
         print(f"{name}: wall {wall:.3f} s, supersteps {int(res.n_steps)}, "
               f"speculative {int(res.n_spec)}, reseeds "
@@ -312,43 +387,46 @@ def main():
                              "counter, trace, status and float field)"
                              if not bad else "; ".join(bad)), flush=True)
         failures += bad
-        if min(counts.values()) <= 0:
+        if min(counts[k] for k in path) <= 0:
             failures.append(f"{name}: a kernel was never launched")
         if max(plain.values()) > 0:
             failures.append(f"{name}: a plain version ran on the card")
 
-    phase(f"where the time goes: the first {WINDOW} supersteps of "
-          f"{MAIN_CELL}")
-    c, g, fleet = cells[MAIN_CELL]
-    window = dict(opt=c["opt"], n_users=c["n_users"], batch=c["batch"],
-                  max_events=WINDOW, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
-                                    **window)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
-                                  **window)
+    for name in (MAIN_CELL, NET_CELL):
+        phase(f"where the time goes: the first {WINDOW} supersteps of "
+              f"{name}")
+        c, g, fleet = cells[name]
+        window = experiment_kwargs(c, dev, max_events=WINDOW)
         torch.cuda.synchronize()
-    by_name = {}
-    for e in device_events(prof):
-        k = e.name.split("(")[0][-48:]
-        n, us = by_name.get(k, (0, 0.0))
-        by_name[k] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in by_name.values()) / 1e6
-    n_kernels = sum(n for n, _ in by_name.values())
-    steps = int(res.n_steps) + int(res.n_spec)
-    print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
-          f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
-          f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
-          f"superstep), host syncs {res.host_syncs}", flush=True)
-    for k, (n, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:8]:
-        print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms", flush=True)
+        t0 = time.perf_counter()
+        res = simulation.run_experiment(g, fleet, c["deadline"],
+                                        c["budget"], **window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
+                                      **window)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in device_events(prof):
+            k = e.name.split("(")[0][-48:]
+            n, us = by_name.get(k, (0, 0.0))
+            by_name[k] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in by_name.values()) / 1e6
+        n_kernels = sum(n for n, _ in by_name.values())
+        steps = int(res.n_steps) + int(res.n_spec)
+        print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
+              f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
+              f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
+              f"superstep), host syncs {res.host_syncs}", flush=True)
+        for k, (n, us) in sorted(by_name.items(),
+                                 key=lambda x: -x[1][1])[:8]:
+            print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms",
+                  flush=True)
 
     phase("times (ms per call: device time from the profiler, call time "
           "from CUDA events)")
+    c, g, fleet = cells[MAIN_CELL]
     r, j = 16, min(g.n, c["n_users"] * 2 * int(fleet.num_pe.max()))
     rem, tie, mips, npe, pol, blk, ok = scan_inputs(r, j, gen, dev)
     kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
@@ -357,6 +435,13 @@ def main():
     sizes = engine_layout(c["n_users"], c["n_jobs_per_user"], fleet.r, r)
     cand, _ = frontier_inputs(sizes, gen, dev)
     f4 = 4
+    lt = min(g.n, c["n_users"] * 2 * int(fleet.num_pe.max()))
+    lrem, ltie, lbaud, lbg, lcap = link_inputs(r, lt, gen, dev)
+    # bytes: rem and tie read, rate written, the row vectors read and
+    # written once each; the work is a few compares and one divide per
+    # slot, far below the bytes' time
+    link_bytes = 3 * r * lt * f4 + (2 + 3) * r * f4
+    link_ops = 8 * r * lt
     scan_bytes = (2 * r * j + 5 * r) * f4 + (r * j + 3 * r) * f4
     # The function's own work, not the kernel's: a fresh rank needs a
     # sort of each row (J log2 J compares), not the J^2 pairwise count.
@@ -375,7 +460,17 @@ def main():
              lambda: ek.event_frontier_cuda(cand, sizes),
              lambda: ek.event_frontier_ref(cand, sizes),
              (sum(sizes) + len(sizes) + 1) * f4 + 3 * len(sizes) * f4,
-             3 * sum(sizes))):
+             3 * sum(sizes)),
+            ("link_scan", "trunk cap",
+             lambda: ek.link_scan_cuda(lrem, lbaud, bg=lbg, tie=ltie,
+                                       cap=lcap),
+             lambda: ek.link_scan_ref(lrem, lbaud, bg=lbg, tie=ltie,
+                                      cap=lcap),
+             link_bytes + r * f4, link_ops),
+            ("link_scan", "private",
+             lambda: ek.link_scan_cuda(lrem, lbaud, bg=lbg, tie=ltie),
+             lambda: ek.link_scan_ref(lrem, lbaud, bg=lbg, tie=ltie),
+             link_bytes, link_ops)):
         call_ms = time_ms(fn)
         ms = device_ms(fn, kernel=f"{name}_kernel")
         if ms is None:
@@ -387,7 +482,8 @@ def main():
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{name} {form} [{r},{j}]: kernel {ms} ms device "
+        shape = f"[{r},{lt}]" if name == "link_scan" else f"[{r},{j}]"
+        print(f"{name} {form} {shape}: kernel {ms} ms device "
               f"({call_ms:.5f} ms per call), plain {plain_ms:.5f} ms per "
               f"call ({plain_dev} ms device), bound {bound_ms:.7f} ms "
               f"({by}: {nbytes} B, {n_ops} ops), library call: none",
@@ -398,11 +494,14 @@ def main():
 
     src = "src/repro_torch/kernels/csrc/event_scan.cu"
     replaces = {"event_scan": "src/repro/kernels/event_scan.py:353",
-                "event_frontier": "src/repro/kernels/event_scan.py:1009"}
+                "event_frontier": "src/repro/kernels/event_scan.py:1009",
+                "link_scan": "src/repro/kernels/event_scan.py:872"}
     kernels = []
-    for name in ("event_scan", "event_frontier"):
+    for name in ("event_scan", "event_frontier", "link_scan"):
         mine = [x for x in rows if x[0] == name]
-        first = mine[0]   # event_scan: the fresh form (the larger time)
+        # event_scan: the fresh form; link_scan: the trunk-cap form (the
+        # larger times)
+        first = mine[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": launches.get(name, 0),
@@ -413,7 +512,8 @@ def main():
             "forms": {x[1]: {"ms": x[2], "plain_ms": x[3],
                              "bound_ms": x[4], "call_ms": x[6]}
                       for x in mine},
-            "shape": [r, j] if name == "event_scan" else [sum(sizes)],
+            "shape": {"event_scan": [r, j], "link_scan": [r, lt]}.get(
+                name, [sum(sizes)]),
             "card": card})
     if failures:
         print("FAILED: " + "; ".join(failures), flush=True)

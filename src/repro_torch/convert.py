@@ -33,7 +33,8 @@ def _tensor(x, device):
 
 
 def _build(cls, src, device):
-    return cls(**{f.name: _tensor(_get(src, f.name), device)
+    return cls(**{f.name: None if _get(src, f.name) is None
+                  else _tensor(_get(src, f.name), device)
                   for f in dataclasses.fields(cls)})
 
 
@@ -48,13 +49,13 @@ def fleet(src, device="cpu") -> Fleet:
 
 
 def params(src, device="cpu") -> engine.SimParams:
-    """``SimParams`` from the reference's params fields.  Raises
-    ``NotImplementedError`` where the reference switches on a source
-    this slice does not run (reservations, trunks, fault traces,
-    failures, dynamic pricing, plan-ahead)."""
-    for name in ("trunk_of", "fault_time"):
-        if _get(src, name) is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    """``SimParams`` from the reference's params fields, the link rates
+    and trunk vectors included.  Raises ``NotImplementedError`` where
+    the reference switches on a source the port does not run yet
+    (reservations, fault traces, failures, dynamic pricing,
+    plan-ahead)."""
+    if _get(src, "fault_time") is not None:
+        raise NotImplementedError("fault_time is not ported yet")
     if np.asarray(_get(src, "resv_res")).shape[0]:
         raise NotImplementedError("reservations are not ported yet")
     p = _build(engine.SimParams, src, device)

@@ -20,14 +20,21 @@ stays on the device, and each predicate is read back once
 two branches give the same result (the reference's own select-free path
 proves which) run unconditionally instead, with no read.
 
-This slice runs the paper's experiment: COMPLETION, RETURN, ARRIVAL,
-CALENDAR_STEP and BROKER.  FAILURE, RECOVERY, TRACE, RESERVATION,
-MARKET, AUCTION and NETWORK are registered with +inf candidates and no
-apply body, so trace codes and apply order match the reference;
-``run``/``run_direct`` refuse every setting that would switch one on.
-Resources therefore never go down here (``res_up`` stays all True), so
-no arrival can fail and no superstep restructures the slab carry through
-an interfering source.
+The port runs the paper's experiment (COMPLETION, RETURN, ARRIVAL,
+CALENDAR_STEP, BROKER) and the fair-share network (NETWORK, with
+``net_cap > 0``): a ``[R_pad, T]`` transfer-slot table (``SimState.xslot``
+/ ``link_gridlet`` / ``link_rem``) holds the remaining bytes of every
+in-flight staging and result return that can contend for its link
+(``network.link_tabled``); concurrent transfers split the link's baud
+rate equally, capped by their shared trunk's fair share where the
+params name trunks, and ``kernels.ops.link_scan`` forecasts the next
+drain exactly as ``event_scan`` forecasts the next completion.
+FAILURE, RECOVERY, TRACE, RESERVATION, MARKET and AUCTION are
+registered with +inf candidates and no apply body, so trace codes and
+apply order match the reference; ``run``/``run_direct`` refuse every
+setting that would switch one on.  Resources therefore never go down
+here (``res_up`` stays all True), so no arrival can fail and no
+superstep restructures the slab carry through an interfering source.
 """
 from __future__ import annotations
 
@@ -72,18 +79,29 @@ class SimParams:
     retry_limit: torch.Tensor     # i32[] resubmission budget
     backoff_base: torch.Tensor    # f32[] exponential backoff unit
     blacklist_cooldown: torch.Tensor  # f32[] broker cooldown
+    # shared trunks (None = private links only): per-resource trunk id
+    # (-1 = none), trunk capacity and background flows, gathered out to
+    # per-resource form by network.trunk_topology
+    trunk_of: torch.Tensor | None = None      # i32[R]
+    trunk_baud: torch.Tensor | None = None    # f32[R]
+    trunk_bg: torch.Tensor | None = None      # f32[R]
 
 
 def default_params(deadline, budget, opt, n_users: int,
                    n_resources: int = 1, registered=None, mtbf=None,
                    mttr=None, reservations=None, link_baud=None,
                    bg_flows=None, pricing_model=econ_mod.PRICE_STATIC,
-                   plan_ahead=False, trunk_of=None, fault_trace=None,
-                   retry_limit=None, backoff_base=None,
-                   blacklist_cooldown=None, device="cpu") -> SimParams:
-    """``mtbf``/``mttr`` broadcast to [R]; the failure, reservation,
-    dynamic-pricing, plan-ahead, trunk and fault-trace settings are not
-    ported yet and raise ``NotImplementedError`` when switched on."""
+                   plan_ahead=False, trunk_of=None, trunk_baud=None,
+                   trunk_bg=None, fault_trace=None, retry_limit=None,
+                   backoff_base=None, blacklist_cooldown=None,
+                   device="cpu") -> SimParams:
+    """``mtbf``/``mttr`` broadcast to [R]; ``link_baud``/``bg_flows``
+    feed the fair-share network (consulted only with ``net_cap > 0``);
+    ``trunk_of`` (per-resource trunk id, -1 = private) with the
+    per-trunk ``trunk_baud``/``trunk_bg`` enables shared trunks.  The
+    failure, reservation, dynamic-pricing, plan-ahead and fault-trace
+    settings are not ported yet and raise ``NotImplementedError`` when
+    switched on."""
     def t(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
@@ -102,10 +120,11 @@ def default_params(deadline, budget, opt, n_users: int,
         raise NotImplementedError("dynamic pricing is not ported yet")
     if plan_ahead:
         raise NotImplementedError("plan_ahead is not ported yet")
-    if trunk_of is not None:
-        raise NotImplementedError("shared trunks are not ported yet")
     if fault_trace is not None:
         raise NotImplementedError("fault traces are not ported yet")
+    trunks = (None, None, None) if trunk_of is None else \
+        network.trunk_topology(trunk_of, n_resources, trunk_baud=trunk_baud,
+                               trunk_bg=trunk_bg, device=device)
     return SimParams(
         deadline=f(deadline), budget=f(budget),
         opt=t(opt, torch.int32).broadcast_to((n_users,)).clone(),
@@ -125,6 +144,7 @@ def default_params(deadline, budget, opt, n_users: int,
         backoff_base=t(0.0 if backoff_base is None else backoff_base),
         blacklist_cooldown=t(0.0 if blacklist_cooldown is None
                              else blacklist_cooldown),
+        trunk_of=trunks[0], trunk_baud=trunks[1], trunk_bg=trunks[2],
     )
 
 
@@ -152,6 +172,10 @@ class SimState:
     g: object                     # GridletBatch
     slot: torch.Tensor            # i32[N] job-slot column (-1 = none)
     row_gridlet: torch.Tensor     # i32[R_pad, J] slot -> gridlet (-1 = free)
+    xslot: torch.Tensor           # i32[N] transfer-slot column (-1 = none)
+    link_gridlet: torch.Tensor    # i32[R_pad, T] transfer slot -> gridlet
+                                  #     (-1 = free); T = 0: analytic links
+    link_rem: torch.Tensor        # f32[R_pad, T] bytes still to move
     spent: torch.Tensor           # f32[U] committed budget
     done_on: torch.Tensor         # f32[U,R] jobs of u completed on r
     first_dispatch: torch.Tensor  # f32[U,R] first dispatch instant (inf)
@@ -289,6 +313,140 @@ def _scan_events(table, rank=None):
 
 
 # ----------------------------------------------------------------------
+# Fair-share link dynamics (the network subsystem)
+# ----------------------------------------------------------------------
+#
+# ``net_cap`` sizes the [R_pad, T] transfer-slot table (T = 0 disables
+# the subsystem: every function below is skipped and transfers keep
+# their analytic timestamps).  A tabled transfer holds its remaining
+# bytes in ``link_rem``; remainders advance piecewise-constantly between
+# events like remaining MI under Fig 8 shares, and the NETWORK source
+# releases a drained transfer's ARRIVAL/RETURN instant to "now" so it
+# folds into the same superstep.
+
+def _net_on(state) -> bool:
+    """The fair-share network subsystem is enabled (T > 0)."""
+    return state.link_rem.shape[1] > 0
+
+
+def _xfer_bytes(g):
+    """Payload of each gridlet's transfer: input files while staging
+    (IN_TRANSIT), result files on the way back."""
+    return torch.where(g.status == IN_TRANSIT, g.in_bytes, g.out_bytes)
+
+
+def _link_rows(params, n_resources, r_pad):
+    """Per-row link rate and background flows, padded to R_pad (padded
+    rows never hold a transfer)."""
+    pad = r_pad - n_resources
+    return (_pad(params.link_baud, pad, 1.0), _pad(params.bg_flows, pad, 0.0))
+
+
+def _link_scan(state, params, n_resources, r_pad):
+    """Fair-share rates and the next-drain forecast per link through
+    ``kernels.ops.link_scan``, the flat gridlet index as the tie key.
+    With shared trunks each row also gets a rate cap: the trunk's
+    capacity over its occupancy summed across every member row (a
+    cross-row gather, done here in torch over the table)."""
+    pad = r_pad - n_resources
+    baud, bg = _link_rows(params, n_resources, r_pad)
+    tie = torch.where(state.link_gridlet >= 0, state.link_gridlet,
+                      2 ** 30).to(torch.float32)
+    cap = None
+    if params.trunk_of is not None:
+        # live-row occupancy, counted exactly as the kernel counts m
+        live = (baud >= network.TINY) & (baud < network.BIG)
+        valid = ((state.link_rem >= network.TINY) &
+                 (state.link_rem < network.BIG) & live[:, None])
+        occ = valid.to(torch.float32).sum(dim=1)
+        cap = network.trunk_rate_cap(
+            occ, _pad(params.trunk_of, pad, -1),
+            _pad(params.trunk_baud, pad, 1.0),
+            _pad(params.trunk_bg, pad, 0.0))
+    return kernel_ops.link_scan(state.link_rem, baud, bg=bg, tie=tie,
+                                cap=cap)
+
+
+def _pending_entries(state, params, n_resources):
+    """Transfers with a future network-entry instant (pre-routed
+    ``run_direct`` dispatches): tabled payloads holding their entry
+    time in ``t_event`` while they wait for a transfer slot."""
+    g = state.g
+    res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    moving = (g.status == IN_TRANSIT) | (g.status == RETURNING)
+    return (moving & (state.xslot < 0) & torch.isfinite(g.t_event) &
+            network.link_tabled(_xfer_bytes(g), params.link_baud[res]))
+
+
+def _advance_transfers(state, ctx, t_next, any_event):
+    """Advance every in-flight transfer over [t, t_next) by the rates in
+    ``ctx["net_scan"]`` (must run while ``state.t`` is the interval
+    start).  Transfers that drain by ``t_next`` are zeroed and recorded
+    in ``ctx["xfer_done"]``; survivors are clamped to 1e-30 so rounding
+    never empties an occupied slot.  ``rem - rate * dt`` is one fused
+    multiply-add, as XLA:CPU compiles it."""
+    rate_lt = ctx["net_scan"][0]
+    occupied = state.link_gridlet >= 0
+    rem = state.link_rem
+    rel = torch.where(occupied, rem / torch.clamp_min(rate_lt, 1e-30), INF)
+    dt = torch.clamp_min(t_next - state.t, 0.0)
+    due = occupied & any_event & (state.t + rel <= t_next)
+    new_rem = torch.where(
+        due, 0.0,
+        torch.where(occupied,
+                    torch.clamp_min(numerics.fma(-rate_lt, dt, rem), 1e-30),
+                    rem))
+    ctx["xfer_done"] = due
+    return replace(state, link_rem=new_rem)
+
+
+def _enqueue_transfers(state, mask, n_resources, r_pad):
+    """Give each masked gridlet a transfer-slot column on its resource's
+    link, load its payload as the remaining bytes, and hand its pending
+    instant to the NETWORK source (``t_event = inf``).  Gridlets that
+    find no free column are counted in ``overflow``."""
+    g = state.g
+    res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    col, ok = _free_columns(state.link_gridlet, mask, res, n_resources)
+    rows = torch.where(ok, res, r_pad)
+    cols = torch.where(ok, col, 0)
+    idx = torch.arange(g.n, dtype=torch.int32, device=res.device)
+    return replace(
+        state,
+        g=replace(g, t_event=torch.where(ok, INF, g.t_event)),
+        link_gridlet=_set_drop(state.link_gridlet, rows, cols, idx),
+        link_rem=_set_drop(state.link_rem, rows, cols, _xfer_bytes(g)),
+        xslot=torch.where(ok, col.to(torch.int32), state.xslot),
+        overflow=state.overflow + (mask & ~ok).sum().to(torch.int32))
+
+
+def _enqueue_new_transfers(state, params, n_resources, r_pad):
+    """End of superstep: transfers created in it (broker dispatches,
+    completions' result returns -- tabled, ``t_event`` inf, no slot)
+    enter their links."""
+    g = state.g
+    moving = (g.status == IN_TRANSIT) | (g.status == RETURNING)
+    new = moving & (state.xslot < 0) & ~torch.isfinite(g.t_event)
+    if state.host.read(new.any()):
+        state = _enqueue_transfers(state, new, n_resources, r_pad)
+    return state
+
+
+def _free_link_slots(state, mask):
+    """Release the transfer slots of every gridlet in ``mask`` (their
+    transfer was consumed by an ARRIVAL/RETURN)."""
+    r_pad, t_cap = state.link_gridlet.shape
+    rows = torch.where(mask, torch.clamp(state.g.resource.to(torch.int64),
+                                         0, r_pad - 1), r_pad)
+    cols = torch.where(mask, torch.clamp(state.xslot.to(torch.int64), 0,
+                                         t_cap - 1), 0)
+    return replace(state,
+                   link_gridlet=_set_drop(state.link_gridlet, rows, cols, -1),
+                   link_rem=_set_drop(state.link_rem, rows, cols, 0.0),
+                   xslot=torch.where(mask, -1, state.xslot))
+
+
+# ----------------------------------------------------------------------
 # Batched event application
 # ----------------------------------------------------------------------
 
@@ -314,33 +472,37 @@ def _count_rank(res, mask, n_resources):
     return torch.gather(excl, 1, res[:, None])[:, 0]
 
 
-def _alloc_slots(state, mask, res, n_resources, r_pad):
-    """Allocate a free job-slot column to every gridlet in ``mask``, in
-    flat-index order within a resource; gridlets that find no free
-    column are counted in ``overflow``.  The rank-th free column comes
-    from a binary search over the row's running free count."""
-    g = state.g
-    n = g.n
+def _free_columns(table, mask, res, n_resources):
+    """The free column of ``table`` (-1 = free) each gridlet in ``mask``
+    takes on its row ``res``, in flat-index order within a row: the
+    rank-th free column, from a binary search over the row's running
+    free count.  Returns (col i64[N], ok: a column was free)."""
+    n = mask.shape[0]
     dev = res.device
-    j_cap = state.row_gridlet.shape[1]
-    res = res.to(torch.int64)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    free = state.row_gridlet < 0
-    n_free = free.sum(dim=1)                              # [R_pad]
+    width = table.shape[1]
+    free = table < 0
     rank = _count_rank(res, mask, n_resources)
-    ok = mask & (rank < n_free[res])
-    cumfree = torch.cumsum(free.to(torch.int64), dim=1)   # [R_pad, J]
+    ok = mask & (rank < free.sum(dim=1)[res])
+    cumfree = torch.cumsum(free.to(torch.int64), dim=1)   # [R_pad, width]
     want = rank + 1
     lo = torch.zeros((n,), dtype=torch.int64, device=dev)
-    hi = torch.full((n,), j_cap - 1, dtype=torch.int64, device=dev)
-    for _ in range(max(1, (j_cap - 1).bit_length())):
+    hi = torch.full((n,), width - 1, dtype=torch.int64, device=dev)
+    for _ in range(max(1, (width - 1).bit_length())):
         mid = torch.div(lo + hi, 2, rounding_mode="floor")
         ge = cumfree[res, mid] >= want
         lo = torch.where(ge, lo, mid + 1)
         hi = torch.where(ge, mid, hi)
-    col = hi
+    return hi, ok
+
+
+def _alloc_slots(state, mask, res, n_resources, r_pad):
+    """Allocate a free job-slot column to every gridlet in ``mask``;
+    gridlets that find no free column are counted in ``overflow``."""
+    res = res.to(torch.int64)
+    col, ok = _free_columns(state.row_gridlet, mask, res, n_resources)
     rows = torch.where(ok, res, r_pad)
     cols = torch.where(ok, col, 0)
+    idx = torch.arange(state.g.n, dtype=torch.int32, device=res.device)
     rg = _set_drop(state.row_gridlet, rows, cols, idx)
     return replace(
         state, row_gridlet=rg,
@@ -351,11 +513,20 @@ def _alloc_slots(state, mask, res, n_resources, r_pad):
 def _apply_completions(state, fleet, params, completes, t_next,
                        n_resources, r_pad):
     """RUNNING -> RETURNING for the whole batch; job slots freed.  The
-    result-return instant is analytic: ``t_next + out_delay``."""
+    result-return instant is analytic (``t_next + out_delay``) unless
+    the network subsystem is on and the payload contends for its link:
+    then it is load-dependent (``t_event = inf``) and the transfer
+    enters the table at the end of the superstep."""
     g = state.g
     res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
-    t_ev = t_next + network.transfer_delay(g.out_bytes,
-                                           fleet.baud_rate[res])
+    if _net_on(state):
+        baud = params.link_baud[res]
+        t_ev = torch.where(
+            network.link_tabled(g.out_bytes, baud), INF,
+            t_next + network.transfer_delay(g.out_bytes, baud))
+    else:
+        t_ev = t_next + network.transfer_delay(g.out_bytes,
+                                               fleet.baud_rate[res])
     g = replace(
         g,
         status=torch.where(completes, RETURNING, g.status),
@@ -405,7 +576,10 @@ def _apply_returns(state, fleet, t_next, n_users, n_resources):
     done_on = state.done_on + segment_count(
         ret_due, ur, n_users * n_resources).to(torch.float32).reshape(
         n_users, n_resources)
-    return replace(state, g=g, done_on=done_on), ret_due
+    state = replace(state, g=g, done_on=done_on)
+    if _net_on(state):    # consumed transfers release their link slots
+        state = _free_link_slots(state, ret_due & (state.xslot >= 0))
+    return state, ret_due
 
 
 def _apply_arrivals(state, fleet, params, free_pe, arr_pre, t_next,
@@ -438,7 +612,10 @@ def _apply_arrivals(state, fleet, params, free_pe, arr_pre, t_next,
         t_event=torch.where(arr_run, INF,
                             torch.where(arr_queue, t_next, g.t_event)),
     )
-    return replace(state, g=g), arr_due, arr_run, arr_queue
+    state = replace(state, g=g)
+    if _net_on(state):    # consumed transfers release their link slots
+        state = _free_link_slots(state, arr_due & (state.xslot >= 0))
+    return state, arr_due, arr_run, arr_queue
 
 
 # ----------------------------------------------------------------------
@@ -496,10 +673,77 @@ def _make_sources(fleet, params, n_users, ctx):
         ctx[("count", des.K_COMPLETION)] = completes.sum().to(torch.int32)
         return state
 
+    # -- NETWORK: fair-share links (the [R_pad, T] transfer table) ------
+    def network_candidates(state):
+        if not _net_on(state):
+            return state.t.new_zeros((0,))
+        ctx["net_scan"] = _link_scan(state, params, n_resources,
+                                     state.row_gridlet.shape[0])
+        tmin = ctx["net_scan"][1]
+        # per-link next drain, then the pending entries' entry instants
+        pend = _pending_entries(state, params, n_resources)
+        return torch.cat([torch.where(tmin < _BIG, state.t + tmin, INF),
+                          torch.where(pend, state.g.t_event, INF)])
+
+    def network_apply(state, now):
+        if not _net_on(state):
+            return state
+        r_pad = state.row_gridlet.shape[0]
+        n = state.g.n
+        # (1) drained transfers release their gridlet's pending instant
+        # to `now`; this superstep's RETURN/ARRIVAL batches consume it
+        lg = state.link_gridlet.to(torch.int64)
+        hit = torch.zeros((n + 1,), dtype=torch.bool, device=lg.device)
+        hit[torch.where(ctx["xfer_done"], lg, n).reshape(-1)] = True
+        done_n = hit[:n]
+        state = replace(state, g=replace(
+            state.g, t_event=torch.where(done_n, now, state.g.t_event)))
+        # (2) pending entries whose entry instant arrived join their link
+        pend = _pending_entries(state, params, n_resources) & \
+            (state.g.t_event <= now)
+        if state.host.read(pend.any()):
+            state = _enqueue_transfers(state, pend, n_resources, r_pad)
+        ctx[("count", des.K_NETWORK)] = (done_n.sum() + pend.sum()).to(
+            torch.int32)
+        ctx[("who", des.K_NETWORK)] = torch.where(
+            done_n.any(), torch.argmax(done_n.to(torch.int32)),
+            torch.argmax(pend.to(torch.int32))).to(torch.int32)
+        return state
+
+    def network_horizon(state):
+        """Pending entries' instants, and for every in-flight staging a
+        lower bound on its drain (``network.fastest_drain``): a staging
+        drain matures an ARRIVAL, which only a committing superstep
+        applies.  Result-return drains cut nothing."""
+        if not _net_on(state):
+            return state.t.new_zeros((0,))
+        g = state.g
+        baud, bg = _link_rows(params, n_resources,
+                              state.row_gridlet.shape[0])
+        gid = state.link_gridlet
+        staging = (gid >= 0) & (g.status[torch.clamp(
+            gid.to(torch.int64), 0, g.n - 1)] == IN_TRANSIT)
+        bound = state.t + network.fastest_drain(state.link_rem,
+                                                baud[:, None], bg[:, None])
+        pend = _pending_entries(state, params, n_resources)
+        return torch.cat([torch.where(staging, bound, INF).reshape(-1),
+                          torch.where(pend, g.t_event, INF)])
+
+    def _untabled(state, nbytes, mask):
+        """``mask`` minus the tabled transfers still waiting for a slot:
+        the NETWORK source owns those until they drain."""
+        if not _net_on(state):
+            return mask
+        res = torch.clamp(state.g.resource.to(torch.int64), 0,
+                          n_resources - 1)
+        return mask & ~(network.link_tabled(nbytes, params.link_baud[res])
+                        & (state.xslot < 0))
+
     # -- RETURN / ARRIVAL / CALENDAR / BROKER ---------------------------
     def return_candidates(state):
         g = state.g
-        return torch.where(g.status == RETURNING, g.t_event, INF)
+        mask = _untabled(state, g.out_bytes, g.status == RETURNING)
+        return torch.where(mask, g.t_event, INF)
 
     def return_apply(state, now):
         state, ret_due = _apply_returns(state, fleet, now, n_users,
@@ -511,7 +755,8 @@ def _make_sources(fleet, params, n_users, ctx):
 
     def arrival_candidates(state):
         g = state.g
-        return torch.where(g.status == IN_TRANSIT, g.t_event, INF)
+        mask = _untabled(state, g.in_bytes, g.status == IN_TRANSIT)
+        return torch.where(mask, g.t_event, INF)
 
     def arrival_apply(state, now):
         state, arr_due, arr_run, arr_queue = _apply_arrivals(
@@ -537,8 +782,25 @@ def _make_sources(fleet, params, n_users, ctx):
     def broker_apply(state, now):
         g = state.g
         ctx["arr_pre"] = (g.status == IN_TRANSIT) & (g.t_event <= now)
+        pre_transit = g.status == IN_TRANSIT
         if state.host.read(ctx["fired_b"]):
             state = broker_mod.broker_event(state, fleet, params, n_users)
+        if _net_on(state):
+            # Re-time fresh dispatches: contending payloads become
+            # load-dependent (t_event inf; they enter their link at the
+            # end of the superstep), the rest take the analytic delay at
+            # the subsystem's link_baud.
+            g2 = state.g
+            res = torch.clamp(g2.resource.to(torch.int64), 0,
+                              n_resources - 1)
+            newt = (g2.status == IN_TRANSIT) & ~pre_transit
+            baud = params.link_baud[res]
+            t_ev = torch.where(
+                newt & network.link_tabled(g2.in_bytes, baud), INF,
+                torch.where(newt,
+                            now + network.transfer_delay(g2.in_bytes, baud),
+                            g2.t_event))
+            state = replace(state, g=replace(g2, t_event=t_ev))
         return state
 
     sources = (
@@ -558,8 +820,9 @@ def _make_sources(fleet, params, n_users, ctx):
                      lambda s: s.next_market.reshape(1), _identity),
         des.FnSource(des.K_AUCTION, "auction",
                      lambda s: s.next_auction.reshape(1), _identity),
-        des.FnSource(des.K_NETWORK, "network",
-                     lambda s: s.t.new_zeros((0,)), _identity),
+        des.FnSource(des.K_NETWORK, "network", network_candidates,
+                     network_apply,
+                     horizon_candidates_fn=network_horizon),
         des.FnSource(des.K_RETURN, "return", return_candidates,
                      return_apply, horizon_fn=des.no_interference),
         des.FnSource(des.K_ARRIVAL, "arrival", arrival_candidates,
@@ -738,6 +1001,9 @@ def _step_commit(state, fleet, params, n_users, slab):
     any_event = torch.isfinite(t_star)
     t_next = torch.where(any_event, t_star, state.t)
 
+    # transfers first: both advances read the interval start from state.t
+    if _net_on(state):
+        state = _advance_transfers(state, ctx, t_next, any_event)
     state = _advance_jobs(state, ctx, t_next, any_event, n_resources)
     pos_of = {s.kind: i for i, s in enumerate(sources)}
     ctx["fired_b"] = fired[pos_of[des.K_BROKER]]
@@ -750,6 +1016,8 @@ def _step_commit(state, fleet, params, n_users, slab):
         state = sources[i].apply(state, t_next)
 
     state = _alloc_newly(state, ctx, n_resources, r_pad)
+    if _net_on(state):    # transfers created this superstep enter links
+        state = _enqueue_new_transfers(state, params, n_resources, r_pad)
 
     no_who = torch.tensor(-1, dtype=torch.int32, device=t_next.device)
     fired_i = fired.to(torch.int32)
@@ -766,16 +1034,14 @@ def _step_commit(state, fleet, params, n_users, slab):
                               r_pad), finished
 
 
-_SPEC_KINDS = (des.K_COMPLETION, des.K_RETURN)
-
-
 def _speculative_step(state, fleet, params, n_users, t_safe, slab,
                       finished):
     """One speculative micro-superstep: applies the earliest pending
-    COMPLETION/RETURN batch if, and only if, it lies strictly inside
-    the speculation horizon ``t_safe``.  (The reference's micro-steps
-    also fire FAILURE/RECOVERY strikes; on this slice those streams are
-    +inf.)  Returns ``(state, fired, slab', finished')``; when nothing
+    COMPLETION / NETWORK-drain / RETURN batch if, and only if, it lies
+    strictly inside the speculation horizon ``t_safe`` (staging drains,
+    which mature an ARRIVAL, cut the horizon, so only result-return
+    drains fire here).  (The reference's micro-steps also fire
+    FAILURE/RECOVERY strikes; here those streams are +inf.)  Returns ``(state, fired, slab', finished')``; when nothing
     fires the state is untouched and the scan just made seeds the
     carry."""
     n_resources = fleet.r
@@ -785,16 +1051,23 @@ def _speculative_step(state, fleet, params, n_users, t_safe, slab,
     sources = _make_sources(fleet, params, n_users, ctx)
     by_kind = {s.kind: s for s in sources}
     comp, ret = by_kind[des.K_COMPLETION], by_kind[des.K_RETURN]
+    net = _net_on(state)
 
     ctx["scan"], reseeded = _checked_scan(state, fleet, params,
                                           n_resources, r_pad, slab)
     ctx["qcarry"] = (slab[2], slab[3])
     host.n_scans += 1
     host.n_reseeds += int(reseeded)
+    if net:
+        ctx["net_scan"] = _link_scan(state, params, n_resources, r_pad)
 
     tmin = ctx["scan"][1].min()
     t_comp = torch.where(tmin < _BIG, state.t + tmin, INF)
     t_next = torch.minimum(t_comp, ret.next_time(state))
+    if net:
+        tmin_l = ctx["net_scan"][1].min()
+        t_next = torch.minimum(
+            t_next, torch.where(tmin_l < _BIG, state.t + tmin_l, INF))
     fire = (torch.isfinite(t_next) & (t_next < t_safe) &
             ~finished.all())
     if not host.read(fire):
@@ -802,15 +1075,24 @@ def _speculative_step(state, fleet, params, n_users, t_safe, slab,
                               torch.tensor(True, device=t_next.device),
                               slab[2], slab[3]), finished
 
+    if net:
+        state = _advance_transfers(state, ctx, t_next, fire)
     state = _advance_jobs(state, ctx, t_next, fire, n_resources)
+    # the committing superstep's apply order, restricted to these sources
     state = comp.apply(state, t_next)     # completions + queue admissions
+    if net:
+        state = by_kind[des.K_NETWORK].apply(state, t_next)
     state = ret.apply(state, t_next)      # incl. zero-delay returns
     state = _alloc_newly(state, ctx, n_resources, r_pad)
-    kinds = torch.tensor(_SPEC_KINDS, dtype=torch.int32,
+    if net:
+        state = _enqueue_new_transfers(state, params, n_resources, r_pad)
+    spec_kinds = ((des.K_COMPLETION, des.K_NETWORK, des.K_RETURN) if net
+                  else (des.K_COMPLETION, des.K_RETURN))
+    kinds = torch.tensor(spec_kinds, dtype=torch.int32,
                          device=t_next.device)
-    counts = torch.stack([ctx[("count", k)] for k in _SPEC_KINDS])
+    counts = torch.stack([ctx[("count", k)] for k in spec_kinds])
     whos = torch.stack([ctx[("who", k)].to(torch.int32)
-                        for k in _SPEC_KINDS])
+                        for k in spec_kinds])
     state, finished = _bookkeep(state, fleet, params, n_users, kinds,
                                 counts, whos, t_next)
     host.n_spec += 1
@@ -859,14 +1141,18 @@ def _continue(state, finished, max_events):
 
 
 def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
-               max_jobs: int | None = None, params=None) -> SimState:
+               max_jobs: int | None = None, params=None,
+               net_cap: int = 0) -> SimState:
     """``max_jobs`` bounds concurrently RUNNING gridlets per resource
-    (the J axis of the job-slot table; default N).  With no failure
-    stream on this slice, ``next_fail`` is +inf (the reference's
-    exponential draw of a zero MTBF) and no random key is kept."""
+    (the J axis of the job-slot table; default N); ``net_cap`` sizes
+    the transfer-slot table (T per link, capped at N; 0 = analytic
+    links).  With no failure stream ported, ``next_fail`` is +inf (the
+    reference's exponential draw of a zero MTBF) and no random key is
+    kept."""
     n = gridlets.n
     dev = gridlets.length_mi.device
     j_cap = n if max_jobs is None else min(max_jobs, n)
+    t_cap = min(max(net_cap, 0), n)
     r = fleet.r
     r_pad = -(-r // BLOCK_R) * BLOCK_R
 
@@ -881,6 +1167,9 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
         g=gridlets,
         slot=full((n,), -1, torch.int32),
         row_gridlet=full((r_pad, j_cap), -1, torch.int32),
+        xslot=full((n,), -1, torch.int32),
+        link_gridlet=full((r_pad, t_cap), -1, torch.int32),
+        link_rem=full((r_pad, t_cap), 0.0),
         spent=full((n_users,), 0.0),
         done_on=full((n_users, r), 0.0),
         first_dispatch=full((n_users, r), INF),
@@ -937,10 +1226,11 @@ def _check_params(params: SimParams):
         raise NotImplementedError("plan_ahead is not ported yet")
 
 
-def _run(gridlets, fleet, params, n_users, max_events, max_jobs, batch):
+def _run(gridlets, fleet, params, n_users, max_events, max_jobs, batch,
+         net_cap=0):
     _check_params(params)
     state = init_state(gridlets, fleet, n_users, max_jobs=max_jobs,
-                       params=params)
+                       params=params, net_cap=net_cap)
     _, finished = _user_flags(state, params, fleet, n_users)
     slab = _empty_slab(state)
     while _continue(state, finished, max_events):
@@ -955,17 +1245,16 @@ def run(gridlets, fleet, params: SimParams, n_users: int,
         telemetry: int | None = None, device="cuda") -> SimResult:
     """Run a full experiment: broker-driven scheduling + execution, on
     ``device``.  ``batch`` is the superstep batching factor k (results
-    are bit-for-bit identical for every k).  ``net_cap`` (the fair-share
-    network) and ``telemetry`` are not ported yet."""
-    if net_cap:
-        raise NotImplementedError("the fair-share network (net_cap) is "
-                                  "not ported yet")
+    are bit-for-bit identical for every k).  ``net_cap > 0`` enables the
+    contention-aware network: payloads over finite links fair-share each
+    resource's ``params.link_baud`` through up to ``net_cap`` transfer
+    slots per link.  ``telemetry`` is not ported yet."""
     if telemetry:
         raise NotImplementedError("telemetry is not ported yet")
     dev = resolve_device(device)
     return _run(to_device(gridlets, dev), to_device(fleet, dev),
                 to_device(params, dev), n_users, max_events, max_jobs,
-                batch)
+                batch, net_cap)
 
 
 def run_direct(gridlets, fleet, resource_idx, dispatch_time,
@@ -975,10 +1264,10 @@ def run_direct(gridlets, fleet, resource_idx, dispatch_time,
     """Broker-less mode: Gridlets are pre-routed into the fleet and the
     brokers stay inert -- the paper's Table 1 / Figs 9 and 12 scenario.
     ``resource_idx`` / ``dispatch_time`` broadcast to [N]; each gridlet
-    arrives after its input transfer at the resource's baud rate."""
-    if net_cap:
-        raise NotImplementedError("the fair-share network (net_cap) is "
-                                  "not ported yet")
+    arrives after its input transfer at the resource's baud rate -- or,
+    with ``net_cap > 0``, after its fair share of the contended link
+    (``baud_rate``/``bg_flows``, default ``fleet.baud_rate`` and 0) has
+    moved the payload."""
     dev = resolve_device(device)
     gridlets = to_device(gridlets, dev)
     fleet = to_device(fleet, dev)
@@ -990,8 +1279,16 @@ def run_direct(gridlets, fleet, resource_idx, dispatch_time,
     link_baud = fleet.baud_rate if baud_rate is None else \
         torch.as_tensor(baud_rate, dtype=torch.float32,
                         device=dev).broadcast_to((fleet.r,))
-    t_ev = t0 + network.transfer_delay(gridlets.in_bytes,
-                                       fleet.baud_rate[r.to(torch.int64)])
+    r64 = r.to(torch.int64)
+    if net_cap:
+        # Contending payloads hold their network-entry instant until the
+        # NETWORK source tables them at exactly t0.
+        t_ev = torch.where(
+            network.link_tabled(gridlets.in_bytes, link_baud[r64]), t0,
+            t0 + network.transfer_delay(gridlets.in_bytes, link_baud[r64]))
+    else:
+        t_ev = t0 + network.transfer_delay(gridlets.in_bytes,
+                                           fleet.baud_rate[r64])
     g = replace(gridlets,
                 status=torch.full((n,), IN_TRANSIT, dtype=torch.int32,
                                   device=dev),
@@ -999,7 +1296,7 @@ def run_direct(gridlets, fleet, resource_idx, dispatch_time,
     params = default_params(-1.0, 0.0, 0, 1, fleet.r,
                             reservations=reservations, link_baud=link_baud,
                             bg_flows=bg_flows, device=dev)
-    return _run(g, fleet, params, 1, max_events, None, batch)
+    return _run(g, fleet, params, 1, max_events, None, batch, net_cap)
 
 
 def run_inner(*args, **kwargs):

@@ -20,6 +20,10 @@ times and spend is bitwise:
   (:func:`segment_sum`).  ``torch.cumsum`` and ``index_add_``
   use other orders (the card's ``index_add_`` even changes its order
   from run to run through atomics), so neither is used on float data.
+* **Full sums.**  XLA:CPU rewrites a reduction over more than 32
+  elements into windows of 32 (zero padding split evenly at both ends)
+  summed in order, then reduces the window sums the same way
+  (:func:`ordered_sum`).
 
 Division by a Python number is avoided everywhere on the card: PyTorch's
 CUDA ``true_divide`` by a CPU scalar multiplies by the reciprocal.
@@ -29,6 +33,7 @@ from __future__ import annotations
 import torch
 
 _TILE = 16        # XLA:CPU's cumulative-reduction tile
+_WINDOW = 32      # XLA:CPU's tree-reduction window
 
 
 def fma(a, b, c):
@@ -84,6 +89,20 @@ def cumsum(x):
     pref = cumsum(within[:, -1].contiguous())
     out = torch.cat([within[:1], within[1:] + pref[:-1, None]])
     return out.reshape(-1)[:n]
+
+
+def ordered_sum(x):
+    """XLA:CPU's f32 ``jnp.sum`` of a 1-D tensor, bit for bit: while more
+    than 32 values remain, pad with zeros to a multiple of 32 (half the
+    padding in front, the odd one at the back), sum each window of 32
+    left to right; the last <= 32 values are summed left to right."""
+    while x.shape[0] > _WINDOW:
+        n = x.shape[0]
+        pad = -(-n // _WINDOW) * _WINDOW - n
+        x = torch.cat([x.new_zeros(pad // 2), x, x.new_zeros(pad - pad // 2)])
+        x = _seq_scan_cols(x.reshape(-1, _WINDOW))[:, -1].contiguous()
+    return _seq_scan_cols(x.reshape(1, -1))[0, -1] if x.shape[0] else \
+        x.new_zeros(())
 
 
 def segment_sum(values, seg, n_seg: int, width: int, init=None):

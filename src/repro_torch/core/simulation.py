@@ -4,9 +4,11 @@ of ``repro.core.simulation``).
 ``run_experiment`` = create resources + users + brokers, start the
 clock, collect statistics -- one call, on the card unless the caller
 passes ``device="cpu"``.  ``Scenario`` keeps the reference's knobs and
-defaults; the ones that would switch on a source this slice does not
-run (failures, reservations, dynamic pricing, plan-ahead, trunks, fault
-traces) raise ``NotImplementedError``, as do the sweep drivers.
+defaults; the ones that would switch on a source the port does not run
+yet (failures, reservations, dynamic pricing, plan-ahead, fault traces)
+raise ``NotImplementedError``, as do the sweep drivers.  The network
+knobs (``baud_rate``, ``bg_flows``, ``trunk_*``) take effect with
+``net_cap != 0``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from . import economy, engine
+from . import economy, engine, numerics
 from .segments import segment_count
 from .types import DONE, OPT_COST, replace, resolve_device, to_device
 
@@ -124,6 +126,14 @@ def safe_max_jobs(gridlets_batch, params, fleet) -> int:
     return min(gridlets_batch.n, params.deadline.shape[0] * limit)
 
 
+def safe_net_cap(gridlets_batch, params, fleet, n_users: int = 1) -> int:
+    """Static bound on concurrent transfers per resource link: at most
+    max_gridlet_per_pe * num_pe gridlets in flight per (user, resource),
+    each holding at most one transfer at a time (capped at N)."""
+    limit = int(params.max_gridlet_per_pe) * fleet.max_pe
+    return min(gridlets_batch.n, n_users * limit)
+
+
 def _scenario_params(fleet, deadline, budget, opt, n_users,
                      scenario: Scenario | None,
                      device="cpu") -> engine.SimParams:
@@ -139,7 +149,8 @@ def _scenario_params(fleet, deadline, budget, opt, n_users,
         pricing_model=economy.as_pricing_model(s.pricing_model),
         plan_ahead=bool(s.plan_ahead) if s.plan_ahead is not None
         else False,
-        trunk_of=s.trunk_of, fault_trace=s.fault_trace,
+        trunk_of=s.trunk_of, trunk_baud=s.trunk_baud,
+        trunk_bg=s.trunk_bg, fault_trace=s.fault_trace,
         retry_limit=s.retry_limit, backoff_base=s.backoff_base,
         blacklist_cooldown=s.blacklist_cooldown, device=device)
     if s.sched_min_period is not None:
@@ -161,11 +172,10 @@ def run_experiment(gridlets_batch, fleet, deadline, budget,
                    device="cuda") -> ExperimentResult:
     """Run one experiment on ``device``.  ``batch`` is the engine's
     k-step superstep batching factor (results are bit-for-bit identical
-    for every value).  ``net_cap`` and ``telemetry`` are not ported
-    yet."""
-    if net_cap is None or net_cap:
-        raise NotImplementedError("the fair-share network (net_cap) is "
-                                  "not ported yet")
+    for every value).  ``net_cap`` enables the contention-aware network:
+    0 keeps the analytic links, ``None`` sizes the transfer-slot table
+    with :func:`safe_net_cap`, a positive int is the slot count per
+    link.  ``telemetry`` is not ported yet."""
     if telemetry:
         raise NotImplementedError("telemetry is not ported yet")
     dev = resolve_device(device)
@@ -173,12 +183,14 @@ def run_experiment(gridlets_batch, fleet, deadline, budget,
     fleet = to_device(fleet, dev)
     params = _scenario_params(fleet, deadline, budget, opt, n_users,
                               scenario, dev)
+    if net_cap is None:
+        net_cap = safe_net_cap(gridlets_batch, params, fleet, n_users)
     if max_events is None:
         horizon = float(params.deadline.max()) * 2.0 + 100.0
         max_events = _max_events(gridlets_batch.n, n_users, horizon, 1.0)
     res = engine.run(gridlets_batch, fleet, params, n_users, max_events,
                      max_jobs=safe_max_jobs(gridlets_batch, params, fleet),
-                     batch=batch, device=dev)
+                     batch=batch, net_cap=net_cap, device=dev)
     return summarize(res, params, n_users, fleet.r, max_events)
 
 
@@ -191,7 +203,9 @@ def run_experiment_factors(gridlets_batch, fleet, d_factor, b_factor,
     dev = resolve_device(device)
     gridlets_batch = to_device(gridlets_batch, dev)
     fleet = to_device(fleet, dev)
-    total_mi = gridlets_batch.length_mi.sum()
+    # XLA:CPU's summation order, so the derived deadline and budget are
+    # the reference's to the last bit.
+    total_mi = numerics.ordered_sum(gridlets_batch.length_mi)
     deadline = economy.deadline_from_factor(fleet, total_mi, d_factor)
     budget = economy.budget_from_factor(fleet, total_mi, b_factor)
     return run_experiment(gridlets_batch, fleet, deadline, budget, opt,

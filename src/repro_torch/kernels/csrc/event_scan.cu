@@ -22,6 +22,24 @@
 //   version bitwise on every slot.  None of the TPU layout survives: no
 //   128-lane padding, no pairwise/bitonic switch, no [8, J, J] cube.
 //
+// link_scan -- replaces the Pallas kernel `link_scan`
+//   (event_scan.py: `_link_kernel` and `_link_kernel_cap` over
+//   `_link_math`, pl.pallas_call at :872).  Per row of the [L, T]
+//   transfer-slot table: the live-transfer count m, the fair-share rate
+//   baud / max(m + bg, 1) (capped at the row's trunk share when a cap is
+//   given), t = rem / rate, the row minimum, the FIFO-tie argmin.
+//   Bound: bytes (rem and tie read, rate written: 12 bytes per slot,
+//   ~123 KB at [16, 640], ~37 ns of HBM time), so in practice launch
+//   latency.  Design: one block per row, threads striding over the
+//   slots; four block reductions (count, t_min, tie key at t_min, column)
+//   and no shared row buffer -- a slot's rate and t are recomputed from
+//   its inputs in each pass, with the same instructions, so every pass
+//   sees the same bits.  The cap form is a null-or-not pointer in the
+//   same kernel.  No rank: fair shares are uniform on a row.  Inputs are
+//   finite or infinite, never NaN (the engine makes none); subnormal
+//   remaining or baud values count as zero, as the reference's compiled
+//   comparisons read them.
+//
 // event_frontier -- replaces the Pallas kernel `event_frontier`
 //   (event_scan.py: `_frontier_kernel`, pl.pallas_call at :1009).  One
 //   block: pass 1 takes each source segment's minimum candidate and
@@ -36,6 +54,7 @@
 // `rem / max(rate, 1e-30)`.  Build without --use_fast_math.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace {
@@ -44,6 +63,7 @@ constexpr float kBig = 3.0e38f;
 constexpr int kScanThreads = 256;
 constexpr int kPerThread = 8;       // rank slots held in registers
 constexpr int kFrontierThreads = 256;
+constexpr int kLinkThreads = 256;
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -233,6 +253,83 @@ event_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
   }
 }
 
+// One block per link row.  cap == nullptr: the private-link form.
+struct LinkRow {
+  float baud, bg, cap;
+  bool live, has_cap;
+  // subnormals count as zero, as in the reference's compiled compares
+  __device__ bool valid(float x) const {
+    return live && (x >= FLT_MIN) && (x < kBig);
+  }
+  // rate and forecast of a valid slot, given the row's occupancy m
+  __device__ float rate(float m) const {
+    float r = __fdiv_rn(baud, fmaxf(__fadd_rn(m, bg), 1.0f));
+    return has_cap ? fminf(r, cap) : r;
+  }
+};
+
+__global__ void __launch_bounds__(kLinkThreads)
+link_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
+                 const float* __restrict__ baud, const float* __restrict__ bg,
+                 const float* __restrict__ cap,
+                 float* __restrict__ rate_out, float* __restrict__ tmin_out,
+                 int* __restrict__ amin_out, int* __restrict__ occ_out,
+                 int T) {
+  __shared__ float redf[32];
+  __shared__ int redi[32];
+  const int l = blockIdx.x;
+  const size_t row = static_cast<size_t>(l) * T;
+  LinkRow lr;
+  lr.baud = baud[l];
+  lr.bg = bg[l];
+  lr.has_cap = cap != nullptr;
+  lr.cap = lr.has_cap ? cap[l] : 0.0f;
+  lr.live = (lr.baud >= FLT_MIN) && (lr.baud < kBig);
+
+  // Step 1: occupancy
+  int n_valid = 0;
+  for (int j = threadIdx.x; j < T; j += blockDim.x)
+    n_valid += lr.valid(rem[row + j]) ? 1 : 0;
+  const int occ = block_sum(n_valid, redi);
+  const float m = static_cast<float>(occ);
+  const float share = lr.rate(m);
+  const float div_rate = fmaxf(share, 1e-30f);
+
+  // Step 2: rates and forecasts (BIG on empty slots); step 3: their
+  // row minimum.  The reductions start from +inf, as torch.min does.
+  float tmin_local = INFINITY;
+  for (int j = threadIdx.x; j < T; j += blockDim.x) {
+    const float x = rem[row + j];
+    const bool v = lr.valid(x);
+    rate_out[row + j] = v ? share : 0.0f;
+    tmin_local = fminf(tmin_local, v ? __fdiv_rn(x, div_rate) : kBig);
+  }
+  const float tmin = block_min(tmin_local, redf);
+
+  // Step 4: lowest tie key among the slots at t_min (BIG elsewhere),
+  // then the lowest column among those
+  float tie_local = INFINITY;
+  for (int j = threadIdx.x; j < T; j += blockDim.x) {
+    const float x = rem[row + j];
+    const bool at_min = lr.valid(x) && __fdiv_rn(x, div_rate) <= tmin;
+    tie_local = fminf(tie_local, at_min ? tie[row + j] : kBig);
+  }
+  const float tie_min = block_min(tie_local, redf);
+  int col_local = T;
+  for (int j = threadIdx.x; j < T; j += blockDim.x) {
+    const float x = rem[row + j];
+    if (lr.valid(x) && __fdiv_rn(x, div_rate) <= tmin &&
+        tie[row + j] <= tie_min)
+      col_local = min(col_local, j);
+  }
+  const int amin = block_min(col_local, redi);
+  if (threadIdx.x == 0) {
+    tmin_out[l] = tmin;
+    amin_out[l] = amin;
+    occ_out[l] = occ;
+  }
+}
+
 __global__ void __launch_bounds__(kFrontierThreads)
 event_frontier_kernel(const float* __restrict__ cand,
                       const float* __restrict__ cuts,
@@ -304,6 +401,16 @@ extern "C" int event_scan_launch(const float* rem, const float* tie,
                       static_cast<cudaStream_t>(stream)>>>(
       rem, tie, mips, npe, pol, blk, ok, rank_in, rate, tmin, amin, occ,
       rank_out, J);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int link_scan_launch(const float* rem, const float* tie,
+                                const float* baud, const float* bg,
+                                const float* cap, float* rate, float* tmin,
+                                int* amin, int* occ, int L, int T,
+                                void* stream) {
+  link_scan_kernel<<<L, kLinkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rem, tie, baud, bg, cap, rate, tmin, amin, occ, T);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 """The GridSim inner loop on Hopper: Fig 8 PE-share allocation plus the
-earliest-completion forecast (``event_scan``), and the fused event
-frontier (``event_frontier``).  Port of ``repro.kernels.event_scan``.
+earliest-completion forecast (``event_scan``), its fair-share link twin
+(``link_scan``) and the fused event frontier (``event_frontier``).
+Port of ``repro.kernels.event_scan``.
 
 Per resource row of the ``[R, J]`` job-slot table:
 
@@ -12,13 +13,21 @@ Per resource row of the ``[R, J]`` job-slot table:
   t_min   = min_j t_j;  argmin = earliest column, ties by the tie key
   occ     = number of occupied job slots
 
+and per link row of the ``[L, T]`` transfer-slot table:
+
+  m       = number of live transfers (rem in (0, BIG), baud in (0, BIG))
+  rate_j  = min(baud / max(m + bg, 1), cap)    (cap: the trunk share)
+  t_j     = rem_j / rate_j;  t_min, argmin and occupancy as above
+
 Each function has two implementations with identical arithmetic:
 
 * the CUDA kernel (``csrc/event_scan.cu``), launched for tensors on the
-  card -- :func:`event_scan_cuda`, :func:`event_frontier_cuda`;
+  card -- :func:`event_scan_cuda`, :func:`link_scan_cuda`,
+  :func:`event_frontier_cuda`;
 * the plain PyTorch version beside it -- :func:`event_scan_ref`,
-  :func:`event_frontier_ref` -- used for tensors on the CPU and as the
-  card-side yardstick the kernels are held against.
+  :func:`link_scan_ref`, :func:`event_frontier_ref` -- used for tensors
+  on the CPU and as the card-side yardstick the kernels are held
+  against.
 
 ``kernels.ops`` routes by device.  ``LAUNCHES`` counts kernel launches
 and ``PLAIN_CALLS`` plain-version calls, so a run can show which path
@@ -33,9 +42,12 @@ import torch
 
 BIG = 3.0e38
 INF = float("inf")
+# The reference's compiled link scan compares subnormal inputs as zero:
+# a positive remaining or baud is one of at least the smallest normal.
+TINY = float(torch.finfo(torch.float32).tiny)
 
-LAUNCHES = {"event_scan": 0, "event_frontier": 0}
-PLAIN_CALLS = {"event_scan": 0, "event_frontier": 0}
+LAUNCHES = {"event_scan": 0, "event_frontier": 0, "link_scan": 0}
+PLAIN_CALLS = {"event_scan": 0, "event_frontier": 0, "link_scan": 0}
 
 
 def reset_counts():
@@ -140,6 +152,51 @@ def event_scan_ref(remaining, mips_eff, num_pe, tie=None, policy=None,
     return res
 
 
+def _link_inputs(remaining, baud, bg, tie, cap):
+    """Defaults and dtypes of the link scan: tie = column index, bg = 0,
+    cap = None (no trunk).  Row vectors come back as [L]."""
+    l, t_n = remaining.shape
+    dev = remaining.device
+    if tie is None:
+        tie = torch.arange(t_n, dtype=torch.float32,
+                           device=dev).expand(l, t_n)
+    if bg is None:
+        bg = torch.zeros((l,), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    return (remaining.to(f32), baud.to(f32).reshape(l),
+            bg.to(f32).reshape(l), tie.to(f32),
+            None if cap is None else cap.to(f32).reshape(l))
+
+
+def link_scan_ref(remaining, baud, bg=None, tie=None, cap=None):
+    """Plain PyTorch fair-share link scan (the semantics of the
+    reference's ``_link_math`` / ``link_scan_xla`` as compiled).  A row
+    whose baud is not in (0, BIG) is dead; a slot holds a transfer when
+    its remaining is in (0, BIG); subnormals count as zero.  Returns
+    (rate [L,T], t_min [L], argmin_col [L] i32, occupancy [L] i32);
+    argmin_col is T for empty or dead rows."""
+    PLAIN_CALLS["link_scan"] += 1
+    l, t_n = remaining.shape
+    rem, baud, bg, tie, cap = _link_inputs(remaining, baud, bg, tie, cap)
+    baud, bg = baud[:, None], bg[:, None]
+    live = (baud >= TINY) & (baud < BIG)
+    valid = (rem >= TINY) & (rem < BIG) & live
+    m = valid.sum(dim=1, keepdim=True).to(torch.float32)
+    rate = torch.where(valid, baud / torch.clamp_min(m + bg, 1.0), 0.0)
+    if cap is not None:
+        rate = torch.where(valid, torch.minimum(rate, cap[:, None]), 0.0)
+    t = torch.where(valid, rem / torch.clamp_min(rate, 1e-30), BIG)
+    tmin = t.min(dim=1, keepdim=True).values
+    tkey = torch.where(valid, tie, BIG)
+    at_min = (t <= tmin) & valid
+    cand = torch.where(at_min, tkey, BIG)
+    tie_min = cand.min(dim=1, keepdim=True).values
+    col = torch.arange(t_n, dtype=torch.int32, device=rem.device)
+    amin = torch.where(at_min & (cand <= tie_min), col, t_n).min(
+        dim=1).values
+    return rate, tmin[:, 0], amin, m[:, 0].to(torch.int32)
+
+
 def _frontier_finish(mins, counts, safe):
     n_src = mins.shape[0]
     if n_src == 0:
@@ -201,6 +258,8 @@ def _lib():
         lib.event_frontier_launch.argtypes = [_P, _P, _P, _I,
                                               _P, _P, _P, _P]
         lib.event_frontier_launch.restype = _I
+        lib.link_scan_launch.argtypes = [_P] * 9 + [_I, _I, _P]
+        lib.link_scan_launch.restype = _I
         lib._repro_torch_bound = True
     return lib
 
@@ -269,6 +328,37 @@ def event_scan_cuda(remaining, mips_eff, num_pe, tie=None, policy=None,
     if with_rank:
         res = res + (rank if rank is not None else rank_out,)
     return res
+
+
+def link_scan_cuda(remaining, baud, bg=None, tie=None, cap=None):
+    """:func:`link_scan_ref` as one CUDA kernel launch (same arguments,
+    same outputs, bitwise).  ``cap`` None launches the kernel with a
+    null cap pointer: the private-link form."""
+    if remaining.device.type != "cuda":
+        raise ValueError("link_scan_cuda takes CUDA tensors")
+    l, t_n = remaining.shape
+    dev = remaining.device
+    rem, baud, bg, tie, cap = (
+        None if x is None else x.contiguous()
+        for x in _link_inputs(remaining, baud, bg, tie, cap))
+    f32 = torch.float32
+    _check(rem, "remaining", (l, t_n), f32, dev)
+    _check(tie, "tie", (l, t_n), f32, dev)
+    for name, v in (("baud", baud), ("bg", bg), ("cap", cap)):
+        if v is not None:
+            _check(v, name, (l,), f32, dev)
+    rate = torch.empty((l, t_n), dtype=f32, device=dev)
+    tmin = torch.empty((l,), dtype=f32, device=dev)
+    amin = torch.empty((l,), dtype=torch.int32, device=dev)
+    occ = torch.empty((l,), dtype=torch.int32, device=dev)
+    if l:
+        err = _lib().link_scan_launch(
+            _ptr(rem), _ptr(tie), _ptr(baud), _ptr(bg), _ptr(cap),
+            _ptr(rate), _ptr(tmin), _ptr(amin), _ptr(occ), l, t_n,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _raise_on(err, "link_scan")
+        LAUNCHES["link_scan"] += 1
+    return rate, tmin, amin, occ
 
 
 @functools.lru_cache(maxsize=64)

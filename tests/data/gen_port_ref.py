@@ -1,25 +1,36 @@
-"""Regenerate tests/data/port_ref_main.json -- the reference results the
-PyTorch port is held against on the main path.
+"""Regenerate the reference results the PyTorch port is held against:
+tests/data/port_ref_main.json (the main path) and
+tests/data/port_ref_net.json (the contended network).
 
 Run from the repo root with the JAX reference on the CPU:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net]
 
-Three cells of ``benchmarks/engine_bench.py``: 1u_200j and 20u_100j on
-the WWG fleet, 4u_512j on the deep 2 x 80-PE fleet; gridlets from
+(no argument writes both).  port_ref_main.json holds three cells of
+``benchmarks/engine_bench.py``: 1u_200j and 20u_100j on the WWG fleet,
+4u_512j on the deep 2 x 80-PE fleet; gridlets from
 ``task_farm(PRNGKey(3))``, cost optimisation, the engine's default
-batch.  Every float (inputs and results) is stored as its uint32 bit
-pattern, so the comparison is bitwise and needs no JAX.
+batch.  port_ref_net.json holds the ``engine_20u_100j_net`` row
+(200 KB in, 100 KB out per gridlet, 28,000 B/s links with one
+background flow, the transfer table auto-sized), the same with the
+first five resources behind one 56,000 B/s trunk (``_trunknet``), both
+again at 4 users x 25 jobs, and ``direct_net``: ``run_direct`` with
+payloads and staggered dispatch instants on the Table 1 resource.
+Every float (inputs and results) is stored as its uint32 bit pattern,
+so the comparison is bitwise and needs no JAX.
 """
 import json
 import os
+import sys
 
 import jax
 import numpy as np
 
 from repro.core import engine, gridlet, resource, simulation, types
 
-OUT = os.path.join(os.path.dirname(__file__), "port_ref_main.json")
+HERE = os.path.dirname(__file__)
+OUT = os.path.join(HERE, "port_ref_main.json")
+OUT_NET = os.path.join(HERE, "port_ref_net.json")
 
 CELLS = (
     # name, n_users, n_jobs_per_user, fleet, deadline, budget
@@ -44,6 +55,43 @@ def _ints(x):
     return np.asarray(x).astype(np.int64).ravel().tolist()
 
 
+def _result(r, res):
+    """The summarized result and the engine's trace, every field the
+    port is held to."""
+    tt, kind, who = (np.asarray(x) for x in res.trace)
+    out = r.gridlets
+    return {
+        "n_done": _bits(r.n_done),
+        "spent": _bits(r.spent),
+        "term_time": _bits(r.term_time),
+        "per_resource_done": _bits(r.per_resource_done),
+        "n_events": int(r.n_events), "n_steps": int(r.n_steps),
+        "n_spec": int(r.n_spec), "n_reseeds": int(r.n_reseeds),
+        "n_scans": int(r.n_scans), "overflow": int(r.overflow),
+        "truncated": bool(r.truncated),
+        "trace_t": _bits(tt), "trace_kind": _ints(kind),
+        "trace_who": _ints(who),
+        "status": _ints(out.status),
+        "resource": _ints(out.resource),
+        "start": _bits(out.start),
+        "finish": _bits(out.finish),
+        "returned": _bits(out.returned),
+        "cost": _bits(out.cost),
+    }
+
+
+def _fleet_fields(fleet, fleet_name):
+    return {
+        "name": fleet_name,
+        "num_pe": _ints(fleet.num_pe),
+        "mips_per_pe": _bits(fleet.mips_per_pe),
+        "cost_per_sec": _bits(fleet.cost_per_sec),
+        "policy": _ints(fleet.policy),
+        "time_zone": _bits(fleet.time_zone),
+        "baud_rate": _bits(fleet.baud_rate),
+    }
+
+
 def cell(name, n_users, n_jobs, fleet_name, deadline, budget):
     """``simulation.run_experiment`` spelled out (the same params, event
     budget, job-slot width and batch) so the engine's trace is kept."""
@@ -57,56 +105,135 @@ def cell(name, n_users, n_jobs, fleet_name, deadline, budget):
     res = engine.run(g, fleet, params, n_users, max_events,
                      max_jobs=simulation.safe_max_jobs(g, params, fleet))
     r = simulation.summarize(res, params, n_users, fleet.r, max_events)
-    tt, kind, who = (np.asarray(x) for x in res.trace)
-    out = r.gridlets
     return {
         "n_users": n_users, "n_jobs_per_user": n_jobs,
         "deadline": deadline, "budget": budget, "opt": types.OPT_COST,
         "batch": engine.DEFAULT_BATCH,
-        "fleet": {
-            "name": fleet_name,
-            "num_pe": _ints(fleet.num_pe),
-            "mips_per_pe": _bits(fleet.mips_per_pe),
-            "cost_per_sec": _bits(fleet.cost_per_sec),
-            "policy": _ints(fleet.policy),
-            "time_zone": _bits(fleet.time_zone),
-            "baud_rate": _bits(fleet.baud_rate),
-        },
+        "fleet": _fleet_fields(fleet, fleet_name),
         "length_mi": _bits(g.length_mi),
+        "result": _result(r, res),
+    }
+
+
+# The engine_20u_100j_net row of benchmarks/engine_bench.py, its trunk
+# variant (the engine_20u_100j_trunk topology without the fault trace
+# and retry knobs), and both at 4 users x 25 jobs for the CPU replay.
+NET = dict(baud_rate=28_000.0, bg_flows=1.0)
+TRUNK = dict(NET, trunk_of=[0] * 5 + [-1] * 6, trunk_baud=56_000.0,
+             trunk_bg=0.0)
+IN_BYTES, OUT_BYTES = 200_000.0, 100_000.0
+NET_CELLS = (
+    # name, n_users, n_jobs_per_user, scenario knobs
+    ("20u_100j_net", 20, 100, NET),
+    ("20u_100j_trunknet", 20, 100, TRUNK),
+    ("4u_25j_net", 4, 25, NET),
+    ("4u_25j_trunknet", 4, 25, TRUNK),
+)
+
+
+def net_cell(name, n_users, n_jobs, knobs, deadline=2000.0,
+             budget=22000.0):
+    """``run_experiment(..., net_cap=None)`` spelled out on the WWG
+    fleet, payloads on every gridlet."""
+    fleet = resource.wwg_fleet()
+    g = gridlet.task_farm(jax.random.PRNGKey(3), n_jobs=n_jobs,
+                          n_users=n_users, in_bytes=IN_BYTES,
+                          out_bytes=OUT_BYTES)
+    scenario = simulation.Scenario(**knobs)
+    params = simulation._scenario_params(fleet, deadline, budget,
+                                         types.OPT_COST, n_users, scenario)
+    net_cap = simulation.safe_net_cap(g, params, fleet, n_users)
+    max_events = simulation._max_events(g.n, n_users,
+                                        deadline * 2.0 + 100.0, 1.0)
+    res = engine.run(g, fleet, params, n_users, max_events,
+                     max_jobs=simulation.safe_max_jobs(g, params, fleet),
+                     net_cap=net_cap)
+    r = simulation.summarize(res, params, n_users, fleet.r, max_events)
+    return {
+        "n_users": n_users, "n_jobs_per_user": n_jobs,
+        "deadline": deadline, "budget": budget, "opt": types.OPT_COST,
+        "batch": engine.DEFAULT_BATCH, "net_cap": net_cap,
+        "scenario": knobs,
+        "fleet": _fleet_fields(fleet, "wwg"),
+        "length_mi": _bits(g.length_mi),
+        "in_bytes": _bits(g.in_bytes), "out_bytes": _bits(g.out_bytes),
+        "result": _result(r, res),
+    }
+
+
+def direct_cell():
+    """``run_direct`` on the Table 1 resource (time-shared, 2 PEs) with
+    payloads over a contended link: the later dispatches wait as pending
+    link entries, and transfers overlap on the link both ways."""
+    length = np.array([10.0, 8.5, 9.5], np.float32)
+    dispatch = np.array([0.0, 4.0, 7.0], np.float32)
+    in_bytes = np.array([5.0, 3.0, 2.0], np.float32)
+    out_bytes = np.array([2.0, 1.0, 3.0], np.float32)
+    knobs = dict(baud_rate=1.0, bg_flows=0.5, net_cap=4, max_events=64)
+    fleet = resource.table1_resource(types.TIME_SHARED)
+    g = gridlet.make_batch(length, in_bytes=in_bytes, out_bytes=out_bytes)
+    res = engine.run_direct(g, fleet, 0, dispatch, knobs["max_events"],
+                            net_cap=knobs["net_cap"],
+                            baud_rate=knobs["baud_rate"],
+                            bg_flows=knobs["bg_flows"])
+    tt, kind, who = (np.asarray(x) for x in res.trace)
+    out = res.gridlets
+    assert int(res.overflow) == 0 and np.all(np.asarray(out.status) ==
+                                             types.DONE)
+    return {
+        "policy": types.TIME_SHARED, "resource": 0,
+        "batch": engine.DEFAULT_BATCH, **knobs,
+        "length_mi": _bits(length), "dispatch_time": _bits(dispatch),
+        "in_bytes": _bits(in_bytes), "out_bytes": _bits(out_bytes),
         "result": {
-            "n_done": _bits(r.n_done),
-            "spent": _bits(r.spent),
-            "term_time": _bits(r.term_time),
-            "per_resource_done": _bits(r.per_resource_done),
-            "n_events": int(r.n_events), "n_steps": int(r.n_steps),
-            "n_spec": int(r.n_spec), "n_reseeds": int(r.n_reseeds),
-            "n_scans": int(r.n_scans), "overflow": int(r.overflow),
-            "truncated": bool(r.truncated),
+            "spent": _bits(res.spent), "term_time": _bits(res.term_time),
+            "n_events": int(res.n_events), "n_steps": int(res.n_steps),
+            "n_spec": int(res.n_spec), "n_reseeds": int(res.n_reseeds),
+            "n_scans": int(res.n_scans), "overflow": int(res.overflow),
             "trace_t": _bits(tt), "trace_kind": _ints(kind),
             "trace_who": _ints(who),
             "status": _ints(out.status),
-            "resource": _ints(out.resource),
-            "start": _bits(out.start),
-            "finish": _bits(out.finish),
+            "start": _bits(out.start), "finish": _bits(out.finish),
             "returned": _bits(out.returned),
-            "cost": _bits(out.cost),
         },
     }
 
 
-def main():
-    ref = {
-        "_about": "JAX reference results for the port's main-path cells "
-                  "(tests/data/gen_port_ref.py); floats as uint32 bits",
+def _header(about):
+    return {
+        "_about": about + " (tests/data/gen_port_ref.py); floats as "
+                          "uint32 bits",
         "jax_version": jax.__version__,
         "jax_threefry_partitionable": bool(
             jax.config.jax_threefry_partitionable),
-        "cells": {c[0]: cell(*c) for c in CELLS},
     }
-    with open(OUT, "w") as f:
-        json.dump(ref, f, separators=(",", ":"))
-    print(f"wrote {OUT}")
+
+
+def main(which=("main", "net")):
+    if "main" in which:
+        ref = dict(_header("JAX reference results for the port's "
+                           "main-path cells"),
+                   cells={c[0]: cell(*c) for c in CELLS})
+        with open(OUT, "w") as f:
+            json.dump(ref, f, separators=(",", ":"))
+        print(f"wrote {OUT}")
+    if "net" in which:
+        cells = {c[0]: net_cell(*c) for c in NET_CELLS}
+        # the trunk cap binds: the capped runs differ from the uncapped
+        for users in ("20u_100j", "4u_25j"):
+            a = cells[f"{users}_net"]["result"]
+            b = cells[f"{users}_trunknet"]["result"]
+            assert a["trace_t"] != b["trace_t"] or \
+                a["finish"] != b["finish"], users
+        assert cells["20u_100j_net"]["result"]["trace_t"] != \
+            cells["20u_100j_trunknet"]["result"]["trace_t"]
+        cells["direct_net"] = direct_cell()
+        ref = dict(_header("JAX reference results for the port's "
+                           "contended-network cells"), cells=cells)
+        with open(OUT_NET, "w") as f:
+            json.dump(ref, f, separators=(",", ":"))
+        print(f"wrote {OUT_NET}")
 
 
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]) or ("main", "net"))

@@ -169,6 +169,43 @@ def _check_transfer_delay_edge_cases():
     _eq(network.return_delay(g, f, t_idx), jnet.return_delay(jg, jf, idx))
 
 
+def _check_fair_share_leaves():
+    """``fastest_drain``, ``link_tabled`` and the trunk helpers against
+    the jitted reference (the engine runs them inside its compiled
+    loop), on payloads and links at every clamp: empty, negative,
+    huge, dead (0, denormal), BIG and infinite baud."""
+    rng = np.random.RandomState(7)
+    nbytes = np.concatenate([
+        np.array([0.0, -3.0, 1.0, 2e5, 3e38, 1e30], np.float32),
+        rng.exponential(1e5, 30).astype(np.float32)])
+    baud = np.concatenate([
+        np.array([28000.0, 0.0, 1e-40, 3.0e38, np.inf, 9600.0],
+                 np.float32),
+        rng.uniform(100.0, 1e5, 30).astype(np.float32)])
+    bg = rng.choice([0.0, 0.5, 1.0, 2.5, 7.0], 36).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (nbytes, baud, bg)]
+    _eq(network.fastest_drain(*t), jax.jit(jnet.fastest_drain)(
+        nbytes, baud, bg), "fastest_drain")
+    _eq(network.link_tabled(t[0], t[1]),
+        jax.jit(jnet.link_tabled)(nbytes, baud), "link_tabled")
+    trunk_of = [0, 0, 1, -1, 1, 2, -1, 0, 2, -1, 1]
+    for tb, tg in ((None, None), (56000.0, 0.0),
+                   ([5e4, 1e3, 7e4], [0.0, 1.5, 0.25])):
+        port = network.trunk_topology(trunk_of, 11, tb, tg)
+        ref = jnet.trunk_topology(trunk_of, 11, tb, tg)
+        for p, r in zip(port, ref):
+            _eq(p, r, "trunk_topology")
+        _eq(network.trunk_incidence(port[0], 11),
+            jnet.trunk_incidence(ref[0], 11), "trunk_incidence")
+        occ = rng.randint(0, 40, 11).astype(np.float32)
+        _eq(network.trunk_rate_cap(torch.from_numpy(occ), *port),
+            jax.jit(jnet.trunk_rate_cap)(occ, *ref), "trunk_rate_cap")
+    with pytest.raises(ValueError):
+        network.trunk_topology([0, 1], 3)
+    with pytest.raises(ValueError):
+        network.trunk_topology([0, -2, 1], 3)
+
+
 def _check_segments():
     rng = np.random.RandomState(0)
     for n, groups in ((1, 1), (40, 3), (300, 25), (2048, 8)):
@@ -183,6 +220,17 @@ def _check_segments():
         _eq(segments.group_prefix_sum(t[0], t[1], t[2], t[3], groups),
             jax.jit(jseg.group_prefix_sum, static_argnums=4)(
                 key, member, order, values, groups))
+
+
+def _check_ordered_sum():
+    """``jnp.sum`` of f32 ``[N]`` (XLA:CPU's window-32 tree) against
+    numerics.ordered_sum, signed values over 14 binades so every order
+    difference shows."""
+    rng = np.random.RandomState(8)
+    for n in (0, 1, 31, 32, 33, 100, 129, 1055, 2000, 20000, 70000):
+        x = (np.exp(rng.uniform(0, 14, n)) *
+             rng.choice([-1.0, 1.0], n)).astype(np.float32)
+        _eq(numerics.ordered_sum(torch.from_numpy(x)), jnp.sum(x), f"n={n}")
 
 
 def _check_cumsum():
@@ -317,19 +365,23 @@ def _check_event_source_contract():
 
 def test_economy_and_network_match_reference():
     """quickstart's header, the D-/B-factors, the network delays on edge
-    inputs and the broker's min-affordable cost."""
+    inputs, the fair-share and trunk leaves, and the broker's
+    min-affordable cost."""
     _check_quickstart_header()
     _check_factors()
     _check_transfer_delay_edge_cases()
+    _check_fair_share_leaves()
     _check_min_affordable_cost()
 
 
 def test_segments_and_float_order_match_xla():
     """Segmented ranks and sums, and the reference-order float helpers
-    (cumsum's tile order at sizes around 16, the ordered segment_sum and
-    its scatter-add fold, the fused multiply-add)."""
+    (cumsum's tile order at sizes around 16, the full sum's window-32
+    tree, the ordered segment_sum and its scatter-add fold, the fused
+    multiply-add)."""
     _check_segments()
     _check_cumsum()
+    _check_ordered_sum()
     _check_segment_sum_and_scatter_add_fold()
     _check_fma()
 

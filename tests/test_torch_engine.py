@@ -1,9 +1,9 @@
-"""The port's slice end to end against the JAX reference: the Table 1
+"""The port's slices end to end against the JAX reference: the Table 1
 trace through ``run_direct``, live ``run_experiment`` runs of the
 economic broker under every optimisation mode at batch 1 and 8, the
-committed 1u_200j reference replayed on the CPU, and batch 8 equal to
-batch 1.  Every integer, status, trace and float field is compared bit
-for bit."""
+committed 1u_200j and contended-network references replayed on the CPU,
+and batch 8 equal to batch 1.  Every integer, status, trace and float
+field is compared bit for bit."""
 import dataclasses
 import gc
 import json
@@ -41,7 +41,9 @@ def _release_xla_executables():
     gc.collect()
 
 
-REF =os.path.join(os.path.dirname(__file__), "data", "port_ref_main.json")
+REF = os.path.join(os.path.dirname(__file__), "data", "port_ref_main.json")
+REF_NET = os.path.join(os.path.dirname(__file__), "data",
+                       "port_ref_net.json")
 GRIDLET_FIELDS = ("status", "resource", "assigned", "remaining", "t_event",
                   "start", "finish", "returned", "cost", "n_retries")
 COUNTERS = ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
@@ -242,20 +244,23 @@ def test_committed_1u_200j_reference_replays_on_cpu():
 
 
 def test_run_experiment_factors_within_the_sum_order_drift(live):
-    """D-/B-factors go through ``length_mi.sum()``, which XLA:CPU adds in
-    its own vectorised order and torch in another: the total, hence the
-    deadline and budget, may differ by up to 2 ULP (ROADMAP C).  Given
-    the same deadline and budget the runs are bitwise equal (above)."""
+    """D-/B-factors go through ``length_mi.sum()``, which the port adds
+    in XLA:CPU's own order (``numerics.ordered_sum``): the deadline, the
+    budget and the run are bitwise the reference's (no drift left; the
+    name is the one this test had when it allowed 2 ULP)."""
     g, fleet, _ = live
     jg = jgrid.task_farm(jax.random.PRNGKey(11), n_jobs=N_JOBS,
                          n_users=N_USERS)
-    _, (jd, jb) = jsim.run_experiment_factors(jg, jres.wwg_fleet(), 0.4,
-                                              0.6, n_users=N_USERS)
+    ref, (jd, jb) = jsim.run_experiment_factors(jg, jres.wwg_fleet(), 0.4,
+                                                0.6, n_users=N_USERS)
     res, (d, b) = simulation.run_experiment_factors(
         g, fleet, 0.4, 0.6, n_users=N_USERS, device="cpu")
-    for port, ref in ((d, jd), (b, jb)):
-        ulp = abs(int(_bits(port)) - int(_bits(np.float32(ref))))
-        assert ulp <= 2, ulp
+    _eq(d, np.float32(jd), "deadline")
+    _eq(b, np.float32(jb), "budget")
+    for name in ("n_done", "spent", "term_time", "per_resource_done"):
+        _eq(getattr(res, name), getattr(ref, name), name)
+    for name in ("status", "finish", "cost"):
+        _eq(getattr(res.gridlets, name), getattr(ref.gridlets, name), name)
     assert int(res.n_done.sum()) > 0 and int(res.overflow) == 0
     _check_params_carry_across()
 
@@ -272,13 +277,176 @@ def _check_params_carry_across():
     for f in dataclasses.fields(engine.SimParams):
         _eq(getattr(carried, f.name), getattr(ref, f.name), f.name)
         _eq(getattr(port, f.name), getattr(ref, f.name), f.name)
+    # the link rates and the trunk vectors carry across too
+    knobs = dict(baud_rate=28_000.0, bg_flows=0.5,
+                 trunk_of=[0] * 5 + [-1] * 4 + [1] * 2,
+                 trunk_baud=[56_000.0, 9_000.0], trunk_bg=[0.0, 1.5])
+    ref = jsim._scenario_params(jfleet, 700.0, 9000.0, 0, 4,
+                                jsim.Scenario(**knobs))
+    port = simulation._scenario_params(fleet, 700.0, 9000.0, 0, 4,
+                                       simulation.Scenario(**knobs))
+    carried = convert.params(_leaves(ref))
+    for name in ("link_baud", "bg_flows", "trunk_of", "trunk_baud",
+                 "trunk_bg"):
+        _eq(getattr(carried, name), getattr(ref, name), name)
+        _eq(getattr(port, name), getattr(ref, name), name)
     with pytest.raises(NotImplementedError):
         convert.params(_leaves(jsim._scenario_params(
             jfleet, 700.0, 9000.0, 0, 4, jsim.Scenario(mtbf=100.0))))
 
 
 # ----------------------------------------------------------------------
-# What this slice refuses
+# The contended network (tests/data/gen_port_ref.py), replayed, and the
+# network identities of tests/test_network.py on the port alone
+# ----------------------------------------------------------------------
+
+def _check_net_cell(c, res):
+    r = c["result"]
+    out = convert.to_numpy(res)
+    for name in ("n_done", "spent", "term_time", "per_resource_done"):
+        _eq(out[name].reshape(-1), _f32(r[name]), name)
+    for got, name in zip(out["trace"], ("trace_t", "trace_kind",
+                                        "trace_who")):
+        want = _f32(r[name]) if name == "trace_t" else np.asarray(
+            r[name], np.int32)
+        _eq(got, want, name)
+    for name in ("status", "resource"):
+        _eq(out["gridlets"][name], np.asarray(r[name], np.int32), name)
+    for name in ("start", "finish", "returned", "cost"):
+        _eq(out["gridlets"][name], _f32(r[name]), name)
+    for name in ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
+                 "overflow"):
+        assert int(out[name]) == r[name], name
+    assert bool(res.truncated) == r["truncated"]
+
+
+def _replay_net_cell(c):
+    fl = c["fleet"]
+    fleet = resource.make_fleet(
+        fl["num_pe"], torch.from_numpy(_f32(fl["mips_per_pe"])),
+        torch.from_numpy(_f32(fl["cost_per_sec"])), fl["policy"],
+        time_zone=torch.from_numpy(_f32(fl["time_zone"])),
+        baud_rate=torch.from_numpy(_f32(fl["baud_rate"])))
+    u, nj = c["n_users"], c["n_jobs_per_user"]
+    g = gridlet.make_batch(
+        torch.from_numpy(_f32(c["length_mi"])),
+        in_bytes=torch.from_numpy(_f32(c["in_bytes"])),
+        out_bytes=torch.from_numpy(_f32(c["out_bytes"])),
+        user=torch.arange(u, dtype=torch.int32).repeat_interleave(nj))
+    res = simulation.run_experiment(
+        g, fleet, c["deadline"], c["budget"], opt=c["opt"], n_users=u,
+        batch=c["batch"], scenario=simulation.Scenario(**c["scenario"]),
+        net_cap=None, device="cpu")
+    _check_net_cell(c, res)
+    assert c["net_cap"] == simulation.safe_net_cap(
+        g, engine.default_params(c["deadline"], c["budget"], c["opt"], u,
+                                 fleet.r), fleet, u)
+
+
+def _replay_direct_net(c):
+    fleet = resource.table1_resource(c["policy"])
+    g = gridlet.make_batch(torch.from_numpy(_f32(c["length_mi"])),
+                           in_bytes=torch.from_numpy(_f32(c["in_bytes"])),
+                           out_bytes=torch.from_numpy(_f32(c["out_bytes"])))
+    res = engine.run_direct(g, fleet, c["resource"],
+                            torch.from_numpy(_f32(c["dispatch_time"])),
+                            c["max_events"], batch=c["batch"],
+                            net_cap=c["net_cap"], baud_rate=c["baud_rate"],
+                            bg_flows=c["bg_flows"], device="cpu")
+    r = c["result"]
+    for name in ("spent", "term_time"):
+        _eq(getattr(res, name), _f32(r[name]), name)
+    for got, name in zip(res.trace, ("trace_t", "trace_kind", "trace_who")):
+        want = _f32(r[name]) if name == "trace_t" else np.asarray(
+            r[name], np.int32)
+        _eq(got, want, name)
+    _eq(res.gridlets.status, np.asarray(r["status"], np.int32), "status")
+    for name in ("start", "finish", "returned"):
+        _eq(getattr(res.gridlets, name), _f32(r[name]), name)
+    for name in ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
+                 "overflow"):
+        assert int(getattr(res, name)) == r[name], name
+
+
+def _grid_fields(res):
+    return [getattr(res.gridlets, f) for f in ("status", "resource",
+                                               "start", "finish",
+                                               "returned", "cost")]
+
+
+def _check_infinite_links_equal_analytic():
+    """Infinite links table nothing: net mode equals the analytic run
+    superstep for superstep, trace included."""
+    g = gridlet.make_batch(torch.tensor([10.0, 8.5, 9.5]), in_bytes=5e4,
+                           out_bytes=2e4)
+    fleet = resource.table1_resource(types.TIME_SHARED)    # baud = inf
+    runs = [engine.run_direct(g, fleet, 0, torch.tensor([0.0, 4.0, 7.0]),
+                              64, net_cap=cap, device="cpu")
+            for cap in (0, 3)]
+    for a, b in zip(runs[0].trace, runs[1].trace):
+        _eq(b, a, "trace")
+    for a, b in zip(_grid_fields(runs[0]), _grid_fields(runs[1])):
+        _eq(b, a, "gridlets")
+    assert int(runs[0].n_steps) == int(runs[1].n_steps)
+    assert int(runs[0].n_events) == int(runs[1].n_events)
+
+
+def _check_zero_bytes_equal_analytic():
+    """Zero-byte payloads cannot contend: the WWG broker run with the
+    subsystem on is bitwise the analytic run, counters included."""
+    farm = gridlet.task_farm(torch.Generator().manual_seed(5), n_jobs=10,
+                             n_users=3)
+    fleet = resource.wwg_fleet()
+    runs = [simulation.run_experiment(farm, fleet, 600.0, 2500.0,
+                                      n_users=3, net_cap=cap, device="cpu")
+            for cap in (0, None)]
+    for name in ("n_done", "spent", "term_time", "n_events", "n_steps",
+                 "n_spec", "n_reseeds", "overflow"):
+        _eq(getattr(runs[1], name), getattr(runs[0], name), name)
+    for a, b in zip(_grid_fields(runs[0]), _grid_fields(runs[1])):
+        _eq(b, a, "gridlets")
+
+
+def _check_contended_batch8_equals_batch1():
+    """Contended links (some payloads zero, so tabled and instant
+    transfers coexist) give bitwise the same run at batch 8 as at
+    batch 1, and the slabs do fold supersteps."""
+    rng = np.random.RandomState(4)
+    fleet = resource.make_fleet([2, 2], [1.0, 1.0], [1.0, 2.0],
+                                types.TIME_SHARED, baud_rate=64.0)
+    n = 10
+    in_b = np.where(rng.rand(n) < 0.3, 0.0,
+                    rng.randint(1, 9, n) * 32.0).astype(np.float32)
+    out_b = np.where(rng.rand(n) < 0.3, 0.0,
+                     rng.randint(1, 5, n) * 16.0).astype(np.float32)
+    g = gridlet.make_batch(torch.full((n,), 25.0),
+                           in_bytes=torch.from_numpy(in_b),
+                           out_bytes=torch.from_numpy(out_b))
+    one, eight = (simulation.run_experiment(
+        g, fleet, 1000.0, 50000.0, n_users=1, net_cap=None, batch=b,
+        scenario=simulation.Scenario(bg_flows=0.5), device="cpu")
+        for b in (1, 8))
+    _assert_same_run(eight, one, counters=("n_events", "overflow"))
+    assert int(eight.n_steps) + int(eight.n_spec) == int(one.n_steps)
+    assert int(eight.n_spec) > 0 and int(one.overflow) == 0
+
+
+def test_committed_net_reference_replays_on_cpu():
+    """4u_25j_net, 4u_25j_trunknet and direct_net replayed bitwise, then
+    the network identities: infinite links and zero-byte payloads equal
+    the analytic run, and batch 8 equals batch 1 on contended links."""
+    with open(REF_NET) as f:
+        cells = json.load(f)["cells"]
+    _replay_net_cell(cells["4u_25j_net"])
+    _replay_net_cell(cells["4u_25j_trunknet"])
+    _replay_direct_net(cells["direct_net"])
+    _check_infinite_links_equal_analytic()
+    _check_zero_bytes_equal_analytic()
+    _check_contended_batch8_equals_batch1()
+
+
+# ----------------------------------------------------------------------
+# What the port refuses
 # ----------------------------------------------------------------------
 
 def _tiny():
@@ -290,9 +458,10 @@ UNPORTED_SETTINGS = (
     dict(scenario=simulation.Scenario(reservations=[(0, 1, 0.0, 5.0)])),
     dict(scenario=simulation.Scenario(pricing_model="auction")),
     dict(scenario=simulation.Scenario(plan_ahead=True)),
-    dict(scenario=simulation.Scenario(trunk_of=[0] * 11)),
     dict(scenario=simulation.Scenario(fault_trace=[(1.0, 0, 0)])),
-    dict(net_cap=None), dict(net_cap=8), dict(telemetry=16),
+    dict(scenario=simulation.Scenario(fault_trace=[(1.0, 0, 0)],
+                                      trunk_of=[0] * 11), net_cap=None),
+    dict(telemetry=16),
 )
 
 
@@ -307,7 +476,8 @@ def test_unported_settings_and_entry_points_raise():
         with pytest.raises(NotImplementedError):
             fn(g, fleet)
     with pytest.raises(NotImplementedError):
-        engine.run_direct(g, fleet, 0, 0.0, 16, net_cap=4, device="cpu")
+        engine.run_direct(g, fleet, 0, 0.0, 16, net_cap=4,
+                          reservations=[(0, 1, 0.0, 5.0)], device="cpu")
 
 
 def test_cuda_by_default_raises_without_a_card():

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch
-version, bitwise, and a small experiment on the card equal to the same
-experiment on the CPU.  Marked ``gpu``; where ``torch.cuda`` is not
+version, bitwise, and small experiments (analytic links, and contended
+links behind a trunk) on the card equal to the same experiments on the
+CPU.  Marked ``gpu``; where ``torch.cuda`` is not
 available every test skips.  Run on a card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -80,39 +81,93 @@ def _check_event_frontier(sizes, cuda):
         assert all(_bits_equal(a, b) for a, b in zip(want, got))
 
 
+def _link_case(l, t, seed, dev):
+    """Free slots, exact forecast ties (integer payloads), an empty row,
+    dead rows (baud 0, BIG, inf, subnormal), fractional background
+    flows and a cap that binds on some rows."""
+    g = torch.Generator().manual_seed(seed)
+    rem = torch.randint(1, 5, (l, t), generator=g).to(torch.float32) * 1024
+    rem[torch.rand((l, t), generator=g) < 0.4] = 0.0
+    rem[1] = 0.0
+    baud = torch.rand(l, generator=g) * 1e4 + 100.0
+    baud[2], baud[3], baud[4], baud[5] = 0.0, 3.0e38, float("inf"), 1e-40
+    bg = torch.tensor([0.0, 0.5, 1.0, 2.5])[torch.randint(
+        0, 4, (l,), generator=g)]
+    tie = torch.stack([torch.randperm(t, generator=g) for _ in range(l)]
+                      ).to(torch.float32)
+    cap = torch.where(torch.rand(l, generator=g) < 0.5,
+                      torch.rand(l, generator=g) * 2e3 + 10.0,
+                      torch.tensor(3.0e38))
+    return [x.to(dev) for x in (rem, baud, bg, tie, cap)]
+
+
+def _check_link_scan(l, t, cuda):
+    rem, baud, bg, tie, cap = _link_case(l, t, l * t, cuda)
+    for c in (None, cap):
+        want = ek.link_scan_ref(rem, baud, bg=bg, tie=tie, cap=c)
+        got = ek.link_scan_cuda(rem, baud, bg=bg, tie=tie, cap=c)
+        assert all(_bits_equal(a, b) for a, b in zip(want, got))
+
+
 def _check_card_tensors_never_reach_the_plain_versions(cuda):
     rem, tie, mips, npe, pol, blk, ok = _scan_case(8, 40, 0, cuda)
     ek.reset_counts()
     ops.event_scan(rem, mips, npe, tie=tie, policy=pol)
     ops.event_frontier(torch.ones(4, device=cuda), (1, 3))
-    assert ek.PLAIN_CALLS == {"event_scan": 0, "event_frontier": 0}
-    assert ek.LAUNCHES == {"event_scan": 1, "event_frontier": 1}
+    ops.link_scan(rem, mips)
+    assert ek.PLAIN_CALLS == {"event_scan": 0, "event_frontier": 0,
+                              "link_scan": 0}
+    assert ek.LAUNCHES == {"event_scan": 1, "event_frontier": 1,
+                           "link_scan": 1}
 
 
 def test_kernels_match_plain_on_the_card(cuda):
-    """Both kernels bitwise against their plain versions (event_scan in
-    its fresh and injected-rank forms), a refused launch, and the router
-    sending card tensors only to the kernels."""
+    """Every kernel bitwise against its plain version (event_scan in its
+    fresh and injected-rank forms, link_scan with and without the trunk
+    cap), a refused launch, and the router sending card tensors only to
+    the kernels."""
     for r, j in ((8, 1), (16, 32), (16, 640), (8, 2000), (3, 3000)):
         _check_event_scan(r, j, cuda)
     _check_refused_launch(cuda)
     for sizes in ((16, 11, 11, 1, 0, 1, 1, 0, 2000, 2000, 11, 1),
                   (0, 5, 0), (1,), (700, 3)):
         _check_event_frontier(sizes, cuda)
+    for l, t in ((8, 1), (16, 32), (16, 640), (8, 2000), (6, 3000)):
+        _check_link_scan(l, t, cuda)
     _check_card_tensors_never_reach_the_plain_versions(cuda)
 
 
-def test_experiment_on_the_card_equals_cpu(cuda):
-    gen = torch.Generator().manual_seed(5)
-    farm = gridlet.task_farm(gen, n_jobs=12, n_users=3)
-    fleet = resource.wwg_fleet()
-    runs = [simulation.run_experiment(farm, fleet, 600.0, 2500.0,
-                                      n_users=3, device=d)
-            for d in ("cpu", cuda)]
+def _same_runs(runs):
     for name in ("n_done", "spent", "term_time", "per_resource_done"):
         assert _bits_equal(getattr(runs[0], name), getattr(runs[1], name))
-    for name in ("status", "resource", "finish", "cost"):
+    for name in ("status", "resource", "finish", "returned", "cost"):
         assert _bits_equal(getattr(runs[0].gridlets, name),
                            getattr(runs[1].gridlets, name))
     for a, b in zip(runs[0].trace, runs[1].trace):
         assert _bits_equal(a, b)
+    for name in ("n_steps", "n_spec", "n_events"):
+        assert int(getattr(runs[0], name)) == int(getattr(runs[1], name))
+
+
+def test_experiment_on_the_card_equals_cpu(cuda):
+    """The broker experiment on analytic links, then on contended links
+    with a trunk cap (the link kernel on the card, its plain version on
+    the CPU)."""
+    gen = torch.Generator().manual_seed(5)
+    farm = gridlet.task_farm(gen, n_jobs=12, n_users=3)
+    fleet = resource.wwg_fleet()
+    _same_runs([simulation.run_experiment(farm, fleet, 600.0, 2500.0,
+                                          n_users=3, device=d)
+                for d in ("cpu", cuda)])
+    net = gridlet.task_farm(gen, n_jobs=12, n_users=3, in_bytes=2e5,
+                            out_bytes=1e5)
+    scenario = simulation.Scenario(baud_rate=28_000.0, bg_flows=1.0,
+                                   trunk_of=[0] * 5 + [-1] * 6,
+                                   trunk_baud=56_000.0)
+    ek.reset_counts()
+    runs = [simulation.run_experiment(net, fleet, 2000.0, 22000.0,
+                                      n_users=3, scenario=scenario,
+                                      net_cap=None, device=d)
+            for d in ("cpu", cuda)]
+    _same_runs(runs)
+    assert ek.LAUNCHES["link_scan"] > 0

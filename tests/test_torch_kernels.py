@@ -1,7 +1,7 @@
 """The port's kernel module (repro_torch.kernels) against the JAX
-reference: the plain PyTorch versions of ``event_scan`` and
-``event_frontier`` must equal the Pallas kernels (interpret mode) and
-the XLA paths bit for bit.  The CUDA kernels themselves run only on a
+reference: the plain PyTorch versions of ``event_scan``, ``link_scan``
+and ``event_frontier`` must equal the Pallas kernels (interpret mode)
+and the XLA paths bit for bit.  The CUDA kernels themselves run only on a
 card: tests/test_torch_gpu.py and chip_smoke.py."""
 import gc
 
@@ -130,6 +130,64 @@ def test_event_scan_plain_matches_pallas_and_xla():
     _check_defaults_and_empty_rows()
 
 
+def _link_case(l, t, seed):
+    """Transfer-slot tables with free slots, exact forecast ties
+    (integer payloads on odd seeds), empty rows, dead rows (baud 0, at
+    BIG and infinite), fractional background flows, and a trunk cap
+    that binds on some rows and is BIG on others."""
+    rng = np.random.RandomState(seed)
+    rem = rng.exponential(1e5, (l, t)).astype(np.float32)
+    rem[rng.rand(l, t) < 0.4] = 0.0
+    if seed % 2:
+        rem = np.where(rem > 0, (rng.randint(1, 4, (l, t)) * 1024.0),
+                       0.0).astype(np.float32)
+    rem[1] = 0.0                                  # an empty row
+    baud = rng.uniform(100.0, 1e4, l).astype(np.float32)
+    baud[2], baud[3], baud[4] = 0.0, 3.0e38, np.inf   # dead rows
+    bg = rng.choice([0.0, 0.5, 1.0, 2.5], l).astype(np.float32)
+    tie = np.stack([rng.permutation(t) for _ in range(l)]).astype(
+        np.float32)
+    tie = np.where(rem > 0, tie, np.float32(2 ** 30)).astype(np.float32)
+    cap = np.where(rng.rand(l) < 0.5, rng.uniform(10.0, 2e3, l),
+                   3.0e38).astype(np.float32)
+    return rem, baud, bg, tie, cap
+
+
+def test_link_scan_plain_matches_pallas_and_xla():
+    """``link_scan_ref`` against the reference router (jitted XLA), the
+    eager ``link_scan_xla`` and the Pallas kernel in interpret mode,
+    with and without the trunk cap, at T in {5, 12, 130}; then the
+    default tie and background inputs."""
+    names = ("rate", "t_min", "argmin", "occ")
+    for l, t, seed in ((8, 5, 0), (8, 12, 1), (16, 130, 3)):
+        rem, baud, bg, tie, cap = _link_case(l, t, seed)
+        for c in (None, cap):
+            port = ops.link_scan(
+                torch.from_numpy(rem), torch.from_numpy(baud),
+                bg=torch.from_numpy(bg), tie=torch.from_numpy(tie),
+                cap=None if c is None else torch.from_numpy(c))
+            kw = dict(bg=bg, tie=tie, cap=c)
+            _assert_bitwise(port, jax_ops.link_scan(rem, baud, **kw), names)
+            _assert_bitwise(port, jax_event.link_scan_xla(rem, baud, **kw),
+                            names)
+            _assert_bitwise(port, jax_ops.link_scan(rem, baud,
+                                                    interpret=True, **kw),
+                            names)
+            # an empty or dead row answers T; live rows share exactly
+            assert int(port[2][1]) == t and int(port[3][2]) == 0
+    rem, baud, _, _, _ = _link_case(8, 9, 5)
+    _assert_bitwise(ops.link_scan(torch.from_numpy(rem),
+                                  torch.from_numpy(baud)),
+                    jax_event.link_scan_xla(rem, baud), names)
+    # Compiled, the reference reads subnormal payloads and links as
+    # zero (eager JAX keeps them): a subnormal slot is empty, a
+    # subnormal link dead.
+    rem[0, 0], baud[5] = 1e-40, 1e-40
+    _assert_bitwise(ops.link_scan(torch.from_numpy(rem),
+                                  torch.from_numpy(baud)),
+                    jax_ops.link_scan(rem, baud), names)
+
+
 def _frontier_case(sizes, seed):
     rng = np.random.RandomState(seed)
     c = sum(sizes)
@@ -167,13 +225,18 @@ def test_cpu_tensors_route_to_plain_versions():
     ops.event_scan(torch.from_numpy(rem), torch.from_numpy(mips),
                    torch.from_numpy(npe), tie=torch.from_numpy(tie))
     ops.event_frontier(torch.ones(4), (1, 3))
-    assert ek.PLAIN_CALLS == {"event_scan": 1, "event_frontier": 1}
-    assert ek.LAUNCHES == {"event_scan": 0, "event_frontier": 0}
+    ops.link_scan(torch.from_numpy(rem), torch.from_numpy(mips))
+    assert ek.PLAIN_CALLS == {"event_scan": 1, "event_frontier": 1,
+                              "link_scan": 1}
+    assert ek.LAUNCHES == {"event_scan": 0, "event_frontier": 0,
+                           "link_scan": 0}
     # the kernels' own wrappers take no CPU tensor
     with pytest.raises(ValueError):
         ek.event_scan_cuda(torch.ones(8, 4), torch.ones(8), torch.ones(8))
     with pytest.raises(ValueError):
         ek.event_frontier_cuda(torch.ones(4), (1, 3))
+    with pytest.raises(ValueError):
+        ek.link_scan_cuda(torch.ones(8, 4), torch.ones(8))
 
 
 def test_failed_build_and_launch_raise(monkeypatch):
