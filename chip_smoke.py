@@ -17,12 +17,23 @@ Phases (any failure exits non-zero before the result line):
                tests/data/port_ref_net.json; every kernel of a cell's
                path must be launched (counts zeroed just before the run,
                read just after) and the plain versions never;
-5. profile  -- the first WINDOW supersteps of 20u_100j and of
-               20u_100j_net under the profiler: device busy time, idle
-               share, top kernels;
+5. kernel API -- ``repro_torch.kernels.ops.{event_scan_slab, ssd_scan,
+               flash_attention}`` on the card at published widths (the
+               20u_100j / 4u_512j / fleet-scale job tables; mamba2-130m
+               and zamba2-1.2b SSD layers; qwen2-7b, gemma2-27b and
+               gemma3-1b attention layers), counts zeroed just before and
+               read just after: each launched once per call, no plain
+               version; then each output against its plain version (the
+               slab bitwise, SSD and attention at the reference's
+               kernel-vs-oracle tolerances);
 6. times    -- each kernel's device time (profiler) and call time (CUDA
-               events) at the main-path shapes, beside its plain version
-               and its bound.
+               events) at the main-path and kernel-API shapes, beside its
+               plain version, its bound and, where one PyTorch call
+               computes the same function, that call's time;
+7. profile  -- the first WINDOW supersteps of 20u_100j and of
+               20u_100j_net under the profiler: device busy time, idle
+               share, top kernels.  Last: the profiler drops records
+               now and then, and more after a session this large.
 
 Prints a ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.  Imports no JAX.
@@ -44,6 +55,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 MAIN_CELL = "20u_100j"
 NET_CELL = "20u_100j_net"
 # cell -> (reference file, the kernels its path runs)
@@ -56,6 +68,41 @@ CELLS = {"20u_100j": ("port_ref_main.json", PATH),
 SCAN_SHAPES = ((16, 32), (16, 640), (16, 2000), (8, 640))
 LINK_SHAPES = ((16, 640), (16, 32), (8, 2000))
 WINDOW = 300          # supersteps of the main path under the profiler
+# The kernel-API phase: job tables of 20u_100j, 4u_512j and the fleet
+# scale of the reference's slab test; SSD layers (name, B, S, H, P, N,
+# chunk, x dtype) and attention layers (name, B, Hq, Hkv, S, d, causal,
+# window, cap, dtype) at published widths (src/repro/configs).
+SLAB_SHAPES = ((16, 640), (8, 640), (256, 128))
+SLAB_KS = (1, 4, 8)
+BF16, F32 = torch.bfloat16, torch.float32
+SSD_CASES = (("mamba2-130m", 2, 4096, 24, 64, 128, 256, BF16),
+             ("zamba2-1.2b", 2, 4096, 64, 64, 64, 256, BF16),
+             ("mamba2-130m", 2, 4096, 24, 64, 128, 256, F32))
+FLASH_CASES = (("qwen2-7b", 1, 28, 4, 4096, 128, True, 0, 0.0, BF16),
+               ("gemma2-27b local", 1, 32, 16, 8192, 128, True, 4096, 50.0,
+                BF16),
+               ("gemma3-1b local", 1, 4, 1, 4096, 256, True, 512, 0.0, BF16),
+               ("qwen2-7b bidirectional", 1, 28, 4, 2048, 128, False, 0,
+                0.0, BF16),
+               ("qwen2-7b", 1, 28, 4, 4096, 128, True, 0, 0.0, F32))
+SSD_TOL = {BF16: 5e-2, F32: 5e-4}     # tests/test_kernels.py:87
+FLASH_TOL = {BF16: 2e-2, F32: 2e-5}   # tests/test_kernels.py:47
+API = ("event_scan_slab", "ssd_scan", "flash_attention")
+KERNEL_NAME = {"event_scan": "event_scan_kernel",
+               "event_frontier": "event_frontier_kernel",
+               "link_scan": "link_scan_kernel",
+               "event_scan_slab": "event_scan_slab_kernel",
+               "ssd_scan": "ssd_kernel",
+               "flash_attention": "flash_kernel"}
+SOURCE = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+          "flash_attention": "src/repro_torch/kernels/csrc/"
+                             "flash_attention.cu"}
+REPLACES = {"event_scan": "src/repro/kernels/event_scan.py:353",
+            "event_frontier": "src/repro/kernels/event_scan.py:1009",
+            "link_scan": "src/repro/kernels/event_scan.py:872",
+            "event_scan_slab": "src/repro/kernels/event_scan.py:677",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:104",
+            "flash_attention": "src/repro/kernels/flash_attention.py:116"}
 
 
 def phase(name):
@@ -146,8 +193,8 @@ def frontier_inputs(sizes, gen, dev):
     return cand.to(dev), cuts.to(dev)
 
 
-def time_ms(fn, reps=200):
-    for _ in range(10):
+def time_ms(fn, reps=200, warm=10):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -166,18 +213,155 @@ def device_events(prof):
 
 
 def device_ms(fn, kernel=None, reps=100):
-    """Mean device time per call (ms) from the profiler: the kernels
-    whose name contains ``kernel``, or every kernel ``fn`` launched.
-    None when the profiler recorded no device time."""
+    """Mean device time (ms) from the profiler: per launch of the kernel
+    whose name contains ``kernel`` (over the launches it recorded), or
+    per call of every kernel ``fn`` launched.  None when the profiler
+    recorded no device time."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in device_events(prof)
-             if kernel is None or kernel in e.name)
-    return us / reps / 1e3 if us > 0 else None
+    times = [e.time_range.elapsed_us() for e in device_events(prof)
+             if kernel is None or kernel in e.name]
+    if kernel is not None and len(times) != reps:
+        print(f"  (the profiler recorded {len(times)} of {reps} launches of "
+              f"{kernel})", flush=True)
+    n = reps if kernel is None else len(times)
+    return sum(times) / n / 1e3 if sum(times) > 0 else None
+
+
+def ssd_inputs(b, s, h, p, n, dtype, gen, dev):
+    """x ~ N(0, 1) in the working type, dt = softplus(N(0, 1)), a =
+    -exp(0.3 N(0, 1)), B and C ~ N(0, 1): the reference test's draws."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    a = -torch.exp(randn(h) * 0.3)
+    return x, dt, a, randn(b, s, n), randn(b, s, n)
+
+
+def flash_inputs(b, hq, hkv, s, d, dtype, gen, dev):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+
+
+def attended_pairs(sq, skv, causal, window):
+    """(query, key) pairs that survive the causal and window masks."""
+    q = np.arange(sq)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def library_attention(q, k, v, causal, window):
+    """One PyTorch call for the same attention (the yardstick only)."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    if not window:
+        return lambda: f(q, k, v, is_causal=causal, enable_gqa=True)
+    sq, skv = q.shape[2], k.shape[2]
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    keep = kp > qp - window
+    if causal:
+        keep &= kp <= qp
+    return lambda: f(q, k, v, attn_mask=keep, enable_gqa=True)
+
+
+def kernel_api(dev, failures):
+    """The kernel-API phase: drives ``ops`` on the card with the counts
+    zeroed just before and read just after, then holds every output
+    against its plain version.  Returns (launches, max_abs_err, the
+    inputs for the times phase)."""
+    from repro_torch.kernels import event_scan as ek
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    gen = torch.Generator().manual_seed(14)
+    dgen = torch.Generator(device=dev).manual_seed(14)
+    slab_in = {shape: scan_inputs(*shape, gen, dev) for shape in SLAB_SHAPES}
+    ssd_in = [ssd_inputs(*c[1:6], c[7], dgen, dev) for c in SSD_CASES]
+    flash_in = [flash_inputs(*c[1:6], c[9], dgen, dev) for c in FLASH_CASES]
+    lives = {v: torch.tensor(v, device=dev) for v in (True, False)}
+    calls = dict.fromkeys(API, 0)
+    outs = []
+    ek.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for shape, (rem, tie, mips, npe, pol, blk, ok) in slab_in.items():
+        for k in SLAB_KS:
+            for assoc in (True, False):
+                for live in (True, False):
+                    outs.append(("event_scan_slab", (shape, k, assoc, live),
+                                 ops.event_scan_slab(
+                                     rem, mips, npe, k, tie=tie, policy=pol,
+                                     pe_blocked=blk, row_ok=ok,
+                                     live=lives[live], assoc=assoc)))
+                    calls["event_scan_slab"] += 1
+    for case, args in zip(SSD_CASES, ssd_in):
+        outs.append(("ssd_scan", case, ops.ssd_scan(*args, chunk=case[6])))
+        calls["ssd_scan"] += 1
+    for case, (q, k, v) in zip(FLASH_CASES, flash_in):
+        outs.append(("flash_attention", case, ops.flash_attention(
+            q, k, v, causal=case[6], window=case[7], cap=case[8])))
+        calls["flash_attention"] += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ek.LAUNCHES), dict(ek.PLAIN_CALLS)
+    print(f"kernel API: {sum(calls.values())} calls in {wall:.3f} s, "
+          f"calls {calls}, launches {launches}, plain calls {plain}",
+          flush=True)
+    for name in API:
+        if launches[name] != calls[name]:
+            failures.append(f"kernel API: {name} launched {launches[name]} "
+                            f"times in {calls[name]} calls")
+    if max(plain.values()) > 0 or any(launches[k] for k in launches
+                                      if k not in API):
+        failures.append("kernel API: a plain version or another kernel ran")
+
+    errs = dict.fromkeys(API, 0.0)
+    for name, case, got in outs:
+        if name == "event_scan_slab":
+            shape, k, assoc, live = case
+            rem, tie, mips, npe, pol, blk, ok = slab_in[shape]
+            want = ek.event_scan_slab_ref(
+                rem, mips, npe, k, tie=tie, policy=pol, pe_blocked=blk,
+                row_ok=ok, live=lives[live], assoc=assoc, tree=True)
+            same = all(bits_equal(a, b) for a, b in zip(got, want))
+            err = max(abs_err(a, b) for a, b in zip(got, want))
+            label = (f"event_scan_slab {list(shape)} k={k} "
+                     f"{'assoc' if assoc else 'sequential'} "
+                     f"live={live}: {'bitwise' if same else 'DIFF'}")
+            ok_ = same
+        else:
+            if name == "ssd_scan":
+                args = ssd_in[SSD_CASES.index(case)]
+                want = sk.ssd_scan_ref(*args, chunk=case[6])
+                tol = SSD_TOL[case[7]]
+                shape = (f"B {case[1]} S {case[2]} H {case[3]} P {case[4]}"
+                         f" N {case[5]} chunk {case[6]}")
+            else:
+                q, k, v = flash_in[FLASH_CASES.index(case)]
+                want = fk.flash_attention_ref(q, k, v, causal=case[6],
+                                              window=case[7], cap=case[8])
+                tol = FLASH_TOL[case[9]]
+                shape = (f"B {case[1]} Hq {case[2]} Hkv {case[3]} S "
+                         f"{case[4]} d {case[5]} causal {case[6]} window "
+                         f"{case[7]} cap {case[8]}")
+            err = abs_err(got.float(), want.float())
+            ok_ = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                      atol=tol))
+            label = (f"{name} {case[0]} {str(got.dtype)[6:]} ({shape}): "
+                     f"max_abs_err {err:.6g}, tolerance {tol} "
+                     f"{'ok' if ok_ else 'EXCEEDED'}")
+        errs[name] = max(errs[name], err)
+        print(label, flush=True)
+        if not ok_:
+            failures.append(label)
+    return launches, errs, (slab_in, ssd_in, flash_in)
 
 
 def load_cells(dev):
@@ -275,6 +459,8 @@ def main():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    # the plain versions' f32 products stay in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
 
     phase("card")
@@ -392,37 +578,11 @@ def main():
         if max(plain.values()) > 0:
             failures.append(f"{name}: a plain version ran on the card")
 
-    for name in (MAIN_CELL, NET_CELL):
-        phase(f"where the time goes: the first {WINDOW} supersteps of "
-              f"{name}")
-        c, g, fleet = cells[name]
-        window = experiment_kwargs(c, dev, max_events=WINDOW)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = simulation.run_experiment(g, fleet, c["deadline"],
-                                        c["budget"], **window)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
-                                      **window)
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in device_events(prof):
-            k = e.name.split("(")[0][-48:]
-            n, us = by_name.get(k, (0, 0.0))
-            by_name[k] = (n + 1, us + e.time_range.elapsed_us())
-        busy = sum(us for _, us in by_name.values()) / 1e6
-        n_kernels = sum(n for n, _ in by_name.values())
-        steps = int(res.n_steps) + int(res.n_spec)
-        print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
-              f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
-              f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
-              f"superstep), host syncs {res.host_syncs}", flush=True)
-        for k, (n, us) in sorted(by_name.items(),
-                                 key=lambda x: -x[1][1])[:8]:
-            print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms",
-                  flush=True)
+    phase("kernel API: ops.event_scan_slab, ops.ssd_scan and "
+          "ops.flash_attention on the card")
+    api_launches, api_errs, api_in = kernel_api(dev, failures)
+    launches.update({k: api_launches[k] for k in API})
+    errs.update(api_errs)
 
     phase("times (ms per call: device time from the profiler, call time "
           "from CUDA events)")
@@ -482,39 +642,146 @@ def main():
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        shape = f"[{r},{lt}]" if name == "link_scan" else f"[{r},{j}]"
+        shape = {"link_scan": f"[{r},{lt}]",
+                 "event_frontier": f"[{sum(sizes)}]"}.get(name, f"[{r},{j}]")
         print(f"{name} {form} {shape}: kernel {ms} ms device "
               f"({call_ms:.5f} ms per call), plain {plain_ms:.5f} ms per "
               f"call ({plain_dev} ms device), bound {bound_ms:.7f} ms "
               f"({by}: {nbytes} B, {n_ops} ops), library call: none",
               flush=True)
         rows.append((name, form, ms, plain_ms, bound_ms, by, call_ms,
-                     plain_dev))
+                     plain_dev, None, shape))
+
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ssd_scan as sk
+    slab_in, ssd_in, flash_in = api_in
+    sr, sj = SLAB_SHAPES[0]
+    srem, stie, smips, snpe, spol, sblk, sok = slab_in[(sr, sj)]
+    skw = dict(tie=stie, policy=spol, pe_blocked=sblk, row_ok=sok)
+    k_slab = SLAB_KS[-1]
+    # the function's own work: a sort per row, then k waves over the row
+    # (share, quotient and advance of every slot: ~8 operations)
+    slab_ops = sr * sj * int(np.ceil(np.log2(sj))) + k_slab * sr * sj * 8
+    slab_bytes = (2 * sr * sj + 5 * sr) * f4 + sr * k_slab * 8
+    timed = []
+    for assoc in (True, False):
+        timed.append((
+            "event_scan_slab", "assoc" if assoc else "sequential",
+            f"[{sr},{sj}] k={k_slab}",
+            lambda a=assoc: ek.event_scan_slab_cuda(
+                srem, smips, snpe, k_slab, assoc=a, **skw),
+            lambda a=assoc: ek.event_scan_slab_ref(
+                srem, smips, snpe, k_slab, assoc=a, tree=True, **skw),
+            None, slab_bytes, slab_ops, F32_OPS_PER_S, 200, 20))
+    for case, args in zip(SSD_CASES, ssd_in):
+        _, b, s_, h, p_, n, q_, dt_ = case
+        pq = q_ * (q_ + 1) // 2       # causal (query, key) pairs a chunk
+        ops_ = b * (s_ // q_) * (2 * pq * n + 2 * pq * h * p_ +
+                                 4 * q_ * h * p_ * n)
+        nbytes = 2 * args[0].numel() * args[0].element_size() + 4 * (
+            b * s_ * h + h + 2 * b * s_ * n)
+        timed.append((
+            "ssd_scan", f"{case[0]} {str(dt_)[6:]}",
+            f"B {b} S {s_} H {h} P {p_} N {n} chunk {q_}",
+            lambda a=args, c=q_: sk.ssd_scan_cuda(*a, chunk=c),
+            lambda a=args, c=q_: sk.ssd_scan_ref(*a, chunk=c),
+            None, nbytes, ops_,
+            BF16_OPS_PER_S if dt_ == BF16 else F32_OPS_PER_S, 10, 10))
+    for case, (q, k, v) in zip(FLASH_CASES, flash_in):
+        _, b, hq, hkv, s_, d, causal, window, cap, dt_ = case
+        kw = dict(causal=causal, window=window, cap=cap)
+        ops_ = 4 * b * hq * attended_pairs(s_, s_, causal, window) * d
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        timed.append((
+            "flash_attention", f"{case[0]} {str(dt_)[6:]}",
+            f"B {b} Hq {hq} Hkv {hkv} S {s_} d {d} causal {causal} "
+            f"window {window} cap {cap}",
+            lambda q=q, k=k, v=v, kw=kw: fk.flash_attention_cuda(q, k, v,
+                                                                 **kw),
+            lambda q=q, k=k, v=v, kw=kw: fk.flash_attention_ref(q, k, v,
+                                                                **kw),
+            None if cap else library_attention(q, k, v, causal, window),
+            nbytes, ops_,
+            BF16_OPS_PER_S if dt_ == BF16 else F32_OPS_PER_S, 10, 10))
+    for (name, form, shape, fn, plain_fn, lib_fn, nbytes, n_ops, peak,
+         reps, plain_reps) in timed:
+        call_ms = time_ms(fn, reps=reps, warm=min(reps, 10))
+        ms = device_ms(fn, kernel=KERNEL_NAME[name], reps=reps)
+        if ms is None:
+            failures.append(f"{name} {form}: the profiler recorded no "
+                            f"device time for {KERNEL_NAME[name]}")
+        plain_ms = time_ms(plain_fn, reps=plain_reps,
+                           warm=min(plain_reps, 3))
+        lib_ms = None if lib_fn is None else time_ms(lib_fn, reps=reps,
+                                                     warm=3)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / peak * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{name} {form} ({shape}): kernel {ms} ms device "
+              f"({call_ms:.5f} ms per call), plain {plain_ms:.5f} ms per "
+              f"call, bound {bound_ms:.7f} ms ({by}: {nbytes} B, {n_ops} "
+              f"ops at {peak:.3g}/s), library call: "
+              f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}",
+              flush=True)
+        rows.append((name, form, ms, plain_ms, bound_ms, by, call_ms, None,
+                     lib_ms, shape))
     ek.reset_counts()
 
-    src = "src/repro_torch/kernels/csrc/event_scan.cu"
-    replaces = {"event_scan": "src/repro/kernels/event_scan.py:353",
-                "event_frontier": "src/repro/kernels/event_scan.py:1009",
-                "link_scan": "src/repro/kernels/event_scan.py:872"}
+    for name in (MAIN_CELL, NET_CELL):
+        phase(f"where the time goes: the first {WINDOW} supersteps of "
+              f"{name}")
+        c, g, fleet = cells[name]
+        window = experiment_kwargs(c, dev, max_events=WINDOW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulation.run_experiment(g, fleet, c["deadline"],
+                                        c["budget"], **window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
+                                      **window)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in device_events(prof):
+            k = e.name.split("(")[0][-48:]
+            n, us = by_name.get(k, (0, 0.0))
+            by_name[k] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in by_name.values()) / 1e6
+        n_kernels = sum(n for n, _ in by_name.values())
+        steps = int(res.n_steps) + int(res.n_spec)
+        print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
+              f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
+              f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
+              f"superstep), host syncs {res.host_syncs}", flush=True)
+        for k, (n, us) in sorted(by_name.items(),
+                                 key=lambda x: -x[1][1])[:8]:
+            print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms",
+                  flush=True)
+
     kernels = []
-    for name in ("event_scan", "event_frontier", "link_scan"):
+    for name in REPLACES:
         mine = [x for x in rows if x[0] == name]
-        # event_scan: the fresh form; link_scan: the trunk-cap form (the
-        # larger times)
+        # the first form of each kernel leads: event_scan fresh,
+        # link_scan with the trunk cap, the slab's associative form, the
+        # mamba2-130m bf16 SSD layer, the qwen2-7b bf16 attention layer
         first = mine[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces[name], "launches": launches.get(name, 0),
+            "name": name, "route": "cuda",
+            "source": SOURCE.get(
+                name, "src/repro_torch/kernels/csrc/event_scan.cu"),
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "max_abs_err": errs[name],
             "ms": first[2], "plain_ms": first[3], "bound_ms": first[4],
-            "bound_by": first[5], "library_ms": None,
+            "bound_by": first[5], "library_ms": first[8],
             "call_ms": first[6], "plain_device_ms": first[7],
             "forms": {x[1]: {"ms": x[2], "plain_ms": x[3],
-                             "bound_ms": x[4], "call_ms": x[6]}
+                             "bound_ms": x[4], "bound_by": x[5],
+                             "call_ms": x[6], "library_ms": x[8],
+                             "shape": x[9]}
                       for x in mine},
-            "shape": {"event_scan": [r, j], "link_scan": [r, lt]}.get(
-                name, [sum(sizes)]),
-            "card": card})
+            "shape": first[9], "card": card})
     if failures:
         print("FAILED: " + "; ".join(failures), flush=True)
         return 1

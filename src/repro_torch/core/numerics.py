@@ -75,20 +75,27 @@ def _seq_scan_cols(t):
     return out
 
 
-def cumsum(x):
-    """XLA:CPU's f32 ``cumsum`` of a 1-D tensor, bit for bit: tiles of
-    16 summed left to right, tile totals scanned recursively the same
-    way, then each tile's running sums offset by the total before it."""
-    n = x.shape[0]
+def cumsum_rows(x):
+    """XLA:CPU's f32 ``cumsum`` along dim 1 of a 2-D tensor, bit for
+    bit: tiles of 16 summed left to right, tile totals scanned
+    recursively the same way, then each tile's running sums offset by
+    the total before it."""
+    r, n = x.shape
     if n <= _TILE:
-        return _seq_scan_cols(x.reshape(1, n)).reshape(n)
+        return _seq_scan_cols(x)
     nt = -(-n // _TILE)
-    xp = torch.zeros(nt * _TILE, dtype=x.dtype, device=x.device)
-    xp[:n] = x
-    within = _seq_scan_cols(xp.reshape(nt, _TILE))
-    pref = cumsum(within[:, -1].contiguous())
-    out = torch.cat([within[:1], within[1:] + pref[:-1, None]])
-    return out.reshape(-1)[:n]
+    xp = torch.zeros((r, nt * _TILE), dtype=x.dtype, device=x.device)
+    xp[:, :n] = x
+    within = _seq_scan_cols(xp.reshape(r * nt, _TILE)).reshape(r, nt, _TILE)
+    pref = cumsum_rows(within[:, :, -1].contiguous())
+    out = torch.cat([within[:, :1], within[:, 1:] + pref[:, :-1, None]],
+                    dim=1)
+    return out.reshape(r, -1)[:, :n]
+
+
+def cumsum(x):
+    """XLA:CPU's f32 ``cumsum`` of a 1-D tensor (:func:`cumsum_rows`)."""
+    return cumsum_rows(x.reshape(1, -1))[0]
 
 
 def ordered_sum(x):

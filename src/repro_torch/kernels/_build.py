@@ -1,9 +1,10 @@
-"""Builds the CUDA kernels at first use: ``nvcc`` on ``csrc/*.cu`` into
-one shared library with a plain C interface, loaded with ``ctypes``.
+"""Builds the CUDA kernels at first use: one ``nvcc`` per ``csrc/*.cu``,
+all started together, then one link into a shared library with a plain
+C interface, loaded with ``ctypes``.
 
 The library lands in ``build/repro_torch/`` at the repository root,
-named by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses it.  ``-prec-div=true -fmad=false`` and no
+named by a hash of the sources, headers and flags, so an edit rebuilds
+and an unchanged tree reuses it.  ``-prec-div=true -fmad=false`` and no
 ``--use_fast_math``: the kernels must divide and multiply exactly as
 the plain PyTorch versions do.
 """
@@ -22,7 +23,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-prec-div=true", "-fmad=false"]
+         "-Xcompiler", "-fPIC", "-prec-div=true", "-fmad=false"]
 
 
 def _nvcc() -> str:
@@ -43,10 +44,24 @@ def sources():
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libevent_scan_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs):
+    """Waits for every process; raises with the output of the first that
+    failed.  Returns the concatenated output."""
+    outs, failed = [], None
+    for what, proc in procs:
+        out, err = proc.communicate()
+        outs.append(f"{what}:\n{out}{err}")
+        if proc.returncode != 0 and failed is None:
+            failed = outs[-1]
+    if failed is not None:
+        raise RuntimeError("nvcc failed on " + failed)
+    return "".join(outs)
 
 
 def build(verbose: bool = False) -> pathlib.Path:
@@ -56,17 +71,24 @@ def build(verbose: bool = False) -> pathlib.Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
+            procs.append((src.name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = _run(procs)
+        lib = os.path.join(tmp, out.name)
+        log += _run([("link", subprocess.Popen(
+            [nvcc, *FLAGS, "-shared", "-o", lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        if verbose:
+            print(log)
+        os.replace(lib, out)
     return out
 
 

@@ -49,15 +49,41 @@
 //   order with block-wide reductions, segment offsets come in as an
 //   int32 array instead of the TPU's [S, C] membership matrix.
 //
+// event_scan_slab -- replaces the Pallas kernel `event_scan_slab`
+//   (event_scan.py: `_slab_kernel` over `_slab_waves` and
+//   `_slab_waves_assoc(tree=True)`, pl.pallas_call at :677).  Per row:
+//   the same masks and (remaining, tie, column) rank as event_scan, then
+//   the row's next k completions under uninterrupted Fig 8 dynamics.
+//   Bound: bytes (8 bytes a slot read, 8 bytes a wave written: ~82 KB at
+//   [16, 640], ~25 ns of HBM time), so in practice launch latency and
+//   the O(J^2) rank.  Design: one block per row reusing event_scan's
+//   shared-memory rank (`row_keys`, `pairwise_rank`); only the k heads
+//   (rank < k) matter afterwards, so their remaining and columns are
+//   gathered into shared memory and the waves run on k values, not on
+//   the row: assoc=0 is the sequential recurrence on one thread;
+//   assoc=1 builds the k homogeneous (k+1)x(k+1) wave matrices in
+//   parallel and composes them level by level in the Pallas body's
+//   balanced tree (identity-padded, FMA chains in the inner index from
+//   +0, as XLA:CPU compiles `_mats_mul`), then clamps and sums the last
+//   column with XLA's tile-16 cumsum.  The Fig 8 share of rank p in wave
+//   w is `Fig8Row(g - w).rate(p - w)`, the same code event_scan runs.
+//
 // Every quotient and product uses the _rn intrinsics: IEEE f32, never
 // contracted, matching the reference's `mips / max(divisor, 1)` and
-// `rem / max(rate, 1e-30)`.  Build without --use_fast_math.
+// `rem / max(rate, 1e-30)`; an FMA is written as fmaf exactly where
+// XLA:CPU contracts the reference (the slab's `rem - rate * dt` and its
+// matrix products).  Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 
+#include "launch.cuh"
+
 namespace {
+
+using repro_torch::allow_smem;
+using repro_torch::kDefaultSmem;
 
 constexpr float kBig = 3.0e38f;
 constexpr int kScanThreads = 256;
@@ -136,6 +162,85 @@ __device__ int block_sum(int v, int* red) {
   return out;
 }
 
+// The Fig 8 share of one row with g jobs (`_fig8_rates`): the row
+// constants, then the rate of a valid slot of a given rank.
+struct Fig8Row {
+  float k, msc, mips;
+  bool whole_pe;
+  __device__ Fig8Row(float g, float npe_e, float pol, float mips_r) {
+    const float m = fmaxf(npe_e, 1.0f);
+    k = floorf(__fdiv_rn(g, m));
+    const float extra = __fsub_rn(g, __fmul_rn(k, m));
+    msc = __fmul_rn(__fsub_rn(npe_e, extra), k);
+    whole_pe = (g <= npe_e) || (pol > 0.5f);
+    mips = mips_r;
+  }
+  __device__ float rate(float rank) const {
+    const float divisor =
+        whole_pe ? 1.0f : __fadd_rn(k, rank >= msc ? 1.0f : 0.0f);
+    return __fdiv_rn(mips, fmaxf(divisor, 1.0f));
+  }
+};
+
+// `_row_masks` for row r: the effective PE count and whether the row is
+// dead.
+struct RowMask {
+  float npe_e, pol;
+  bool dead;
+  __device__ RowMask(const float* npe, const float* pol_, const float* blk,
+                     const float* ok, int r) {
+    npe_e = fmaxf(__fsub_rn(npe[r], blk[r]), 0.0f);
+    pol = pol_[r];
+    dead = (ok[r] < 0.5f) || ((pol < 0.5f) && (npe_e < 0.5f));
+  }
+};
+
+// Fills the row's sort keys in shared memory (remaining and tie, BIG
+// where the slot is invalid) and returns the occupancy.  Ends on a
+// barrier: the keys are visible to the whole block.
+__device__ int row_keys(const float* __restrict__ rem,
+                        const float* __restrict__ tie, size_t row, int J,
+                        bool dead, float* key, float* tkey, int* redi) {
+  int n_valid = 0;
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    const float x = rem[row + j];
+    const bool valid = (x > 0.0f) && (x < kBig) && !dead;
+    key[j] = valid ? x : kBig;
+    tkey[j] = valid ? tie[row + j] : kBig;
+    n_valid += valid ? 1 : 0;
+  }
+  return block_sum(n_valid, redi);
+}
+
+// The lexsort rank of slots base + s * blockDim + threadIdx (s <
+// kPerThread): #{q : (key_q, tie_q, q) < (key_j, tie_j, j)}, the exact
+// inverse of the row's stable lexsort permutation.
+__device__ void pairwise_rank(const float* key, const float* tkey, int J,
+                              int base, float* rk) {
+  float mk[kPerThread], mt[kPerThread];
+  int cnt[kPerThread];
+#pragma unroll
+  for (int s = 0; s < kPerThread; ++s) {
+    const int j = base + s * blockDim.x + threadIdx.x;
+    mk[s] = j < J ? key[j] : kBig;
+    mt[s] = j < J ? tkey[j] : kBig;
+    cnt[s] = 0;
+  }
+  for (int q = 0; q < J; ++q) {
+    const float kq = key[q], tq = tkey[q];
+#pragma unroll
+    for (int s = 0; s < kPerThread; ++s) {
+      const int j = base + s * blockDim.x + threadIdx.x;
+      const bool before =
+          (kq < mk[s]) ||
+          (kq == mk[s] && (tq < mt[s] || (tq == mt[s] && q < j)));
+      cnt[s] += before ? 1 : 0;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kPerThread; ++s) rk[s] = static_cast<float>(cnt[s]);
+}
+
 // One block per resource row.  rank_in == nullptr: fresh rank (written
 // to rank_out when that is non-null); otherwise the injected rank.
 __global__ void __launch_bounds__(kScanThreads)
@@ -156,57 +261,15 @@ event_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
 
   const int r = blockIdx.x;
   const size_t row = static_cast<size_t>(r) * J;
-
-  // _row_masks
-  const float npe_e = fmaxf(__fsub_rn(npe[r], blk[r]), 0.0f);
-  const float pol_r = pol[r];
-  const bool dead = (ok[r] < 0.5f) || ((pol_r < 0.5f) && (npe_e < 0.5f));
-  int n_valid = 0;
-  for (int j = threadIdx.x; j < J; j += blockDim.x) {
-    const float x = rem[row + j];
-    const bool valid = (x > 0.0f) && (x < kBig) && !dead;
-    key[j] = valid ? x : kBig;
-    tkey[j] = valid ? tie[row + j] : kBig;
-    n_valid += valid ? 1 : 0;
-  }
-  const int occ = block_sum(n_valid, redi);   // barrier: key/tkey visible
-  const float g = static_cast<float>(occ);
-
-  // _fig8_rates, row constants
-  const float m = fmaxf(npe_e, 1.0f);
-  const float k = floorf(__fdiv_rn(g, m));
-  const float extra = __fsub_rn(g, __fmul_rn(k, m));
-  const float msc = __fmul_rn(__fsub_rn(npe_e, extra), k);
-  const bool whole_pe = (g <= npe_e) || (pol_r > 0.5f);
-  const float mips_r = mips[r];
+  const RowMask rm(npe, pol, blk, ok, r);
+  const int occ = row_keys(rem, tie, row, J, rm.dead, key, tkey, redi);
+  const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol, mips[r]);
 
   float tmin_local = kBig;
   for (int base = 0; base < J; base += kPerThread * blockDim.x) {
     float rk[kPerThread];
     if (rank_in == nullptr) {
-      float mk[kPerThread], mt[kPerThread];
-      int cnt[kPerThread];
-#pragma unroll
-      for (int s = 0; s < kPerThread; ++s) {
-        const int j = base + s * blockDim.x + threadIdx.x;
-        mk[s] = j < J ? key[j] : kBig;
-        mt[s] = j < J ? tkey[j] : kBig;
-        cnt[s] = 0;
-      }
-      // #{q : (key_q, tie_q, q) < (key_j, tie_j, j)}: the lexsort rank
-      for (int q = 0; q < J; ++q) {
-        const float kq = key[q], tq = tkey[q];
-#pragma unroll
-        for (int s = 0; s < kPerThread; ++s) {
-          const int j = base + s * blockDim.x + threadIdx.x;
-          const bool before =
-              (kq < mk[s]) ||
-              (kq == mk[s] && (tq < mt[s] || (tq == mt[s] && q < j)));
-          cnt[s] += before ? 1 : 0;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kPerThread; ++s) rk[s] = static_cast<float>(cnt[s]);
+      pairwise_rank(key, tkey, J, base, rk);
     } else {
 #pragma unroll
       for (int s = 0; s < kPerThread; ++s) {
@@ -220,9 +283,7 @@ event_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
       if (j >= J) continue;
       const float kj = key[j];
       const bool valid = kj < kBig;
-      const float divisor =
-          whole_pe ? 1.0f : __fadd_rn(k, rk[s] >= msc ? 1.0f : 0.0f);
-      const float rate = valid ? __fdiv_rn(mips_r, fmaxf(divisor, 1.0f)) : 0.0f;
+      const float rate = valid ? fig8.rate(rk[s]) : 0.0f;
       const float t = valid ? __fdiv_rn(kj, fmaxf(rate, 1e-30f)) : kBig;
       rate_out[row + j] = rate;
       tt[j] = t;
@@ -365,6 +426,157 @@ event_frontier_kernel(const float* __restrict__ cand,
   }
 }
 
+// One block per resource row: the next K completions of the row.  Shared
+// memory: key, tkey [J]; the heads' remaining and column [K]; for
+// assoc, two banks of (K+1)^2 matrices (K, then ceil(K/2)).
+__global__ void __launch_bounds__(kScanThreads)
+event_scan_slab_kernel(const float* __restrict__ rem,
+                       const float* __restrict__ tie,
+                       const float* __restrict__ mips,
+                       const float* __restrict__ npe,
+                       const float* __restrict__ pol,
+                       const float* __restrict__ blk,
+                       const float* __restrict__ ok,
+                       float* __restrict__ t_out, int* __restrict__ col_out,
+                       int J, int K, int assoc) {
+  extern __shared__ float smem[];
+  float* key = smem;
+  float* tkey = smem + J;
+  float* hrem = smem + 2 * J;                       // [K]
+  int* hcol = reinterpret_cast<int*>(hrem + K);     // [K]
+  const int M = K + 1, MM = M * M;
+  float* bank_a = hrem + 2 * K;                     // [K][M][M]
+  float* bank_b = bank_a + static_cast<size_t>(K) * MM;
+  __shared__ int redi[32];
+
+  const int r = blockIdx.x;
+  const size_t row = static_cast<size_t>(r) * J;
+  const RowMask rm(npe, pol, blk, ok, r);
+  const int occ = row_keys(rem, tie, row, J, rm.dead, key, tkey, redi);
+  const float g = static_cast<float>(occ);
+  const float mips_r = mips[r];
+
+  // heads: the rank-p valid slot for p < min(occ, K); absent ranks read
+  // as remaining 0, column 0 (the reference's empty sums)
+  for (int p = occ + threadIdx.x; p < K; p += blockDim.x) {
+    hrem[p] = 0.0f;
+    hcol[p] = 0;
+  }
+  for (int base = 0; base < J; base += kPerThread * blockDim.x) {
+    float rk[kPerThread];
+    pairwise_rank(key, tkey, J, base, rk);
+#pragma unroll
+    for (int s = 0; s < kPerThread; ++s) {
+      const int j = base + s * blockDim.x + threadIdx.x;
+      if (j < J && key[j] < kBig && rk[s] < static_cast<float>(K)) {
+        const int p = static_cast<int>(rk[s]);
+        hrem[p] = key[j];
+        hcol[p] = j;
+      }
+    }
+  }
+  __syncthreads();
+  float* t_row = t_out + static_cast<size_t>(r) * K;
+  int* c_row = col_out + static_cast<size_t>(r) * K;
+
+  if (!assoc) {
+    // `_slab_waves` on the heads alone: wave w completes head w and
+    // advances the later heads at their wave-w shares
+    if (threadIdx.x == 0) {
+      float t_acc = 0.0f;
+      for (int w = 0; w < K; ++w) {
+        if (w >= occ) {
+          t_row[w] = kBig;
+          c_row[w] = J;
+          continue;
+        }
+        const Fig8Row fw(__fsub_rn(g, static_cast<float>(w)), rm.npe_e,
+                         rm.pol, mips_r);
+        const float dt = __fdiv_rn(hrem[w], fmaxf(fw.rate(0.0f), 1e-30f));
+        t_acc = __fadd_rn(t_acc, dt);
+        t_row[w] = t_acc;
+        c_row[w] = hcol[w];
+        for (int p = w + 1; p < min(occ, K); ++p) {
+          const float rate = fw.rate(static_cast<float>(p - w));
+          hrem[p] = fmaxf(fmaf(-rate, dt, hrem[p]), 0.0f);
+        }
+      }
+    }
+    return;
+  }
+
+  // `_wave_matrices`: identity but for row p = (-A[v,p]/d for v < p, 0,
+  // srem_p/d), d = max(A[p,p], 1e-30), clipped to +-BIG.  A[w,p] is the
+  // wave-w share of rank p: nonzero iff w <= p < occ.
+  for (int e = threadIdx.x; e < K * MM; e += blockDim.x) {
+    const int p = e / MM, i = (e % MM) / M, l = e % M;
+    float val = i == l ? 1.0f : 0.0f;
+    if (i == p) {
+      const float a_pp =
+          p < occ ? Fig8Row(__fsub_rn(g, static_cast<float>(p)), rm.npe_e,
+                            rm.pol, mips_r).rate(0.0f)
+                  : 0.0f;
+      const float d = fmaxf(a_pp, 1e-30f);
+      if (l == K) {
+        val = __fdiv_rn(hrem[p], d);
+      } else if (l < p) {
+        const float a_lp =
+            p < occ ? Fig8Row(__fsub_rn(g, static_cast<float>(l)), rm.npe_e,
+                              rm.pol, mips_r).rate(static_cast<float>(p - l))
+                    : 0.0f;
+        val = __fdiv_rn(-a_lp, d);
+      } else {
+        val = 0.0f;
+      }
+      val = val < -kBig ? -kBig : (val > kBig ? kBig : val);
+    }
+    bank_a[e] = val;
+  }
+  __syncthreads();
+
+  // the Pallas body's balanced tree: pairs (a, b) -> b @ a, an odd level
+  // padded with the identity; each entry an FMA chain over the inner
+  // index from +0
+  float* src = bank_a;
+  float* dst = bank_b;
+  for (int n = K; n > 1; n = (n + 1) / 2) {
+    const int half = (n + 1) / 2;
+    for (int e = threadIdx.x; e < half * MM; e += blockDim.x) {
+      const int pr = e / MM, i = (e % MM) / M, l = e % M;
+      const float* a = src + static_cast<size_t>(2 * pr) * MM;
+      const bool pad = 2 * pr + 1 >= n;
+      const float* b = a + MM;
+      float acc = 0.0f;
+      for (int jj = 0; jj < M; ++jj) {
+        const float bv = pad ? (i == jj ? 1.0f : 0.0f) : b[i * M + jj];
+        acc = fmaf(bv, a[jj * M + l], acc);
+      }
+      dst[e] = acc;
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  // dt = max(comp[:K, K], 0) on existing waves, then XLA:CPU's cumsum
+  // (tiles of 16 left to right, tile totals scanned, offsets added)
+  if (threadIdx.x == 0) {
+    float prefix = 0.0f;   // running scan of the tile totals
+    for (int t0 = 0; t0 < K; t0 += 16) {
+      float acc = 0.0f;
+      for (int p = t0; p < min(t0 + 16, K); ++p) {
+        const float dt = p < occ ? fmaxf(src[p * M + K], 0.0f) : 0.0f;
+        acc = __fadd_rn(acc, dt);
+        const float cum = t0 == 0 ? acc : __fadd_rn(acc, prefix);
+        t_row[p] = p < occ ? cum : kBig;
+        c_row[p] = p < occ ? hcol[p] : J;
+      }
+      prefix = t0 == 0 ? acc : __fadd_rn(prefix, acc);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int event_scan_launch(const float* rem, const float* tie,
@@ -374,29 +586,10 @@ extern "C" int event_scan_launch(const float* rem, const float* tie,
                                  float* rate, float* tmin, int* amin,
                                  int* occ, float* rank_out, int R, int J,
                                  void* stream) {
-  // The dynamic shared-memory limit is raised once, to the largest row
-  // seen so far (one card per process).
-  static int max_smem = -1;
-  static size_t allowed = 48 * 1024 - 2 * 32 * sizeof(float);
+  static size_t allowed = kDefaultSmem;
   const size_t smem = static_cast<size_t>(3) * J * sizeof(float);
-  if (smem > allowed) {
-    cudaError_t err;
-    if (max_smem < 0) {
-      int dev = 0;
-      err = cudaGetDevice(&dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      err = cudaDeviceGetAttribute(
-          &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (smem + 2 * 32 * sizeof(float) > static_cast<size_t>(max_smem))
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(event_scan_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
-  }
+  const cudaError_t err = allow_smem(event_scan_kernel, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   event_scan_kernel<<<R, kScanThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       rem, tie, mips, npe, pol, blk, ok, rank_in, rate, tmin, amin, occ,
@@ -421,5 +614,25 @@ extern "C" int event_frontier_launch(const float* cand, const float* cuts,
   event_frontier_kernel<<<1, kFrontierThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       cand, cuts, off, S, mins, counts, safe);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int event_scan_slab_launch(const float* rem, const float* tie,
+                                      const float* mips, const float* npe,
+                                      const float* pol, const float* blk,
+                                      const float* ok, float* t_out,
+                                      int* col_out, int R, int J, int K,
+                                      int assoc, void* stream) {
+  if (K < 1 || K > 256) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t allowed = kDefaultSmem;
+  const size_t mm = static_cast<size_t>(K + 1) * (K + 1);
+  const size_t banks = assoc ? (K + (K + 1) / 2) * mm : 0;
+  const size_t smem = (2 * static_cast<size_t>(J) + 2 * K + banks) *
+                      sizeof(float);
+  const cudaError_t err = allow_smem(event_scan_slab_kernel, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  event_scan_slab_kernel<<<R, kScanThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      rem, tie, mips, npe, pol, blk, ok, t_out, col_out, J, K, assoc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """The GridSim inner loop on Hopper: Fig 8 PE-share allocation plus the
-earliest-completion forecast (``event_scan``), its fair-share link twin
-(``link_scan``) and the fused event frontier (``event_frontier``).
-Port of ``repro.kernels.event_scan``.
+earliest-completion forecast (``event_scan``), its k-wave slab
+(``event_scan_slab``), its fair-share link twin (``link_scan``) and the
+fused event frontier (``event_frontier``).  Port of
+``repro.kernels.event_scan``.
 
 Per resource row of the ``[R, J]`` job-slot table:
 
@@ -13,6 +14,11 @@ Per resource row of the ``[R, J]`` job-slot table:
   t_min   = min_j t_j;  argmin = earliest column, ties by the tie key
   occ     = number of occupied job slots
 
+then, from the same rank, the row's next k completions under
+uninterrupted Fig 8 dynamics (``event_scan_slab``): wave w completes the
+rank-w job at the share of rank 0 among g - w jobs, and advances the
+survivors at theirs;
+
 and per link row of the ``[L, T]`` transfer-slot table:
 
   m       = number of live transfers (rem in (0, BIG), baud in (0, BIG))
@@ -22,23 +28,30 @@ and per link row of the ``[L, T]`` transfer-slot table:
 Each function has two implementations with identical arithmetic:
 
 * the CUDA kernel (``csrc/event_scan.cu``), launched for tensors on the
-  card -- :func:`event_scan_cuda`, :func:`link_scan_cuda`,
-  :func:`event_frontier_cuda`;
+  card -- :func:`event_scan_cuda`, :func:`event_scan_slab_cuda`,
+  :func:`link_scan_cuda`, :func:`event_frontier_cuda`;
 * the plain PyTorch version beside it -- :func:`event_scan_ref`,
-  :func:`link_scan_ref`, :func:`event_frontier_ref` -- used for tensors
-  on the CPU and as the card-side yardstick the kernels are held
-  against.
+  :func:`event_scan_slab_ref`, :func:`link_scan_ref`,
+  :func:`event_frontier_ref` -- used for tensors on the CPU and as the
+  card-side yardstick the kernels are held against.
 
 ``kernels.ops`` routes by device.  ``LAUNCHES`` counts kernel launches
-and ``PLAIN_CALLS`` plain-version calls, so a run can show which path
-it took.
+and ``PLAIN_CALLS`` plain-version calls (``kernels._launch``, shared by
+every kernel module), so a run can show which path it took.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
+
+from ..core import numerics
+from ._launch import LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: F401
+from ._launch import check as _check
+from ._launch import lib as _lib
+from ._launch import ptr as _ptr
+from ._launch import raise_on as _raise_on
+from ._launch import stream as _stream
 
 BIG = 3.0e38
 INF = float("inf")
@@ -46,14 +59,6 @@ INF = float("inf")
 # a positive remaining or baud is one of at least the smallest normal.
 TINY = float(torch.finfo(torch.float32).tiny)
 
-LAUNCHES = {"event_scan": 0, "event_frontier": 0, "link_scan": 0}
-PLAIN_CALLS = {"event_scan": 0, "event_frontier": 0, "link_scan": 0}
-
-
-def reset_counts():
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 # ----------------------------------------------------------------------
@@ -152,6 +157,169 @@ def event_scan_ref(remaining, mips_eff, num_pe, tie=None, policy=None,
     return res
 
 
+def _live_rows(row_ok, live):
+    """The scalar ``live`` gate folded into the row mask on the device:
+    ``live`` False masks every row off (no host read)."""
+    if live is None:
+        return row_ok
+    live = torch.as_tensor(live, device=row_ok.device).to(torch.bool)
+    return torch.where(live, row_ok, 0.0)
+
+
+def _slab_waves(rem, rank, valid, g, mips, npe_e, pol, col, k):
+    """The sequential k-wave recurrence (the reference's ``_slab_waves``):
+    wave w is the Fig 8 share over the survivors, with job count and
+    ranks shifted by the w departed heads; the rank-w job completes it.
+    Returns (t_wave f32[R, k] from now, BIG-padded; col_wave i32[R, k],
+    J-padded)."""
+    r, j = rem.shape
+    t_acc = torch.zeros((r, 1), dtype=torch.float32, device=rem.device)
+    ts, cols = [], []
+    for w in range(k):
+        active = valid & (rank >= w)
+        rate = _fig8_rates(rem, rank - w, active, g - w, mips, npe_e, pol)
+        head = valid & (rank == w)
+        has = head.any(dim=1, keepdim=True)
+        # one head per row: the sum is that head's quotient, exactly
+        dt = torch.where(head, rem / torch.clamp_min(rate, 1e-30),
+                         0.0).sum(dim=1, keepdim=True)
+        t_acc = t_acc + torch.where(has, dt, 0.0)
+        ts.append(torch.where(has, t_acc, BIG))
+        cols.append(torch.where(
+            has, torch.where(head, col, 0).sum(dim=1, keepdim=True),
+            j).to(torch.int32))
+        # XLA:CPU contracts rem - rate * dt into one FMA
+        adv = torch.clamp_min(numerics.fma(-rate, dt, rem), 0.0)
+        rem = torch.where(head, 0.0, torch.where(active, adv, rem))
+    return torch.cat(ts, dim=1), torch.cat(cols, dim=1)
+
+
+def _slab_assoc_inputs(rem, rank, valid, g, mips, npe_e, pol, col, k):
+    """Rank-indexed slab inputs: the wave-rate table A f32[R, k, k]
+    (A[:, w, p] = wave-w rate of the rank-p job), the heads' remaining
+    srem f32[R, k] and columns scol i32[R, k], and has bool[R, k]
+    (rank p exists iff p < g)."""
+    dev = rem.device
+    ar = torch.arange(k, dtype=torch.float32, device=dev)
+    w_i, p_i = ar[None, :, None], ar[None, None, :]
+    g3 = g[:, :, None]
+    act = (p_i >= w_i) & (p_i < g3)
+    a_mat = _fig8_rates(p_i, p_i - w_i, act, g3 - w_i, mips[:, :, None],
+                        npe_e[:, :, None], pol[:, :, None])
+    has = ar[None, :] < g
+    heads = [valid & (rank == p) for p in range(k)]
+    srem = torch.cat([torch.where(h, rem, 0.0).sum(dim=1, keepdim=True)
+                      for h in heads], dim=1)
+    scol = torch.cat([torch.where(h, col, 0).sum(dim=1, keepdim=True)
+                      for h in heads], dim=1)
+    return a_mat, srem, scol, has
+
+
+def _wave_matrices(a_mat, srem, k):
+    """The k homogeneous (k+1)x(k+1) wave matrices [R, k+1, k+1]: the
+    identity but for row p, which holds (-A[v, p] / d for v < p, 0,
+    srem_p / d) with d = max(A[p, p], 1e-30), clipped to +-BIG so a
+    zero-rate head cannot poison the product with 0 * inf."""
+    r = a_mat.shape[0]
+    eye = torch.eye(k + 1, dtype=torch.float32, device=a_mat.device)
+    v_i = torch.arange(k, dtype=torch.float32, device=a_mat.device)[None]
+    mats = []
+    for p in range(k):
+        d = torch.clamp_min(a_mat[:, p, p], 1e-30)[:, None]
+        coeff = torch.where(v_i < p, -a_mat[:, :, p] / d, 0.0)
+        rowvals = torch.clamp(torch.cat([coeff, srem[:, p:p + 1] / d],
+                                        dim=1), -BIG, BIG)
+        m = eye.expand(r, k + 1, k + 1).clone()
+        m[:, p, :] = rowvals
+        mats.append(m)
+    return mats
+
+
+def _compose_waves(a, b):
+    """``b`` after ``a``: the product ``b @ a`` as XLA:CPU compiles the
+    reference's broadcast-multiply-sum -- per entry, an FMA chain over
+    the inner index in order, from +0."""
+    acc = torch.zeros_like(a)
+    for jj in range(a.shape[-1]):
+        acc = numerics.fma(b[..., :, jj, None], a[..., jj, None, :], acc)
+    return acc
+
+
+def _scan_last(mats):
+    """The last prefix of ``jax.lax.associative_scan`` over ``mats``,
+    composed in that function's order: pairs (0,1), (2,3), ... recurse;
+    an odd tail is composed onto the prefix before it."""
+    if len(mats) == 1:
+        return mats[0]
+    if len(mats) % 2:
+        return _compose_waves(_scan_last(mats[:-1]), mats[-1])
+    return _scan_last([_compose_waves(mats[i], mats[i + 1])
+                       for i in range(0, len(mats), 2)])
+
+
+def _tree_product(mats):
+    """The balanced static product tree of the reference's Pallas slab
+    body: pairs composed level by level, an odd level padded with the
+    identity."""
+    eye = torch.eye(mats[0].shape[-1], dtype=torch.float32,
+                    device=mats[0].device)
+    while len(mats) > 1:
+        if len(mats) % 2:
+            mats = mats + [eye.expand_as(mats[0])]
+        mats = [_compose_waves(mats[i], mats[i + 1])
+                for i in range(0, len(mats), 2)]
+    return mats[0]
+
+
+def _slab_waves_assoc(rem, rank, valid, g, mips, npe_e, pol, col, k,
+                      *, tree=False):
+    """The same slab through the associative wave-matrix product: the
+    composite's last column is the dt vector.  ``tree`` picks the
+    Pallas body's balanced tree (and the CUDA kernel's) instead of
+    ``jax.lax.associative_scan``'s order."""
+    j = rem.shape[1]
+    a_mat, srem, scol, has = _slab_assoc_inputs(
+        rem, rank, valid, g, mips, npe_e, pol, col, k)
+    mats = _wave_matrices(a_mat, srem, k)
+    comp = _tree_product(mats) if tree else _scan_last(mats)
+    dt = torch.clamp_min(torch.where(has, comp[:, :k, k], 0.0), 0.0)
+    t_wave = torch.where(has, numerics.cumsum_rows(dt), BIG)
+    col_wave = torch.where(has, scol, j).to(torch.int32)
+    return t_wave, col_wave
+
+
+def event_scan_slab_ref(remaining, mips_eff, num_pe, k, tie=None,
+                        policy=None, pe_blocked=None, row_ok=None,
+                        live=None, *, assoc=True, tree=False):
+    """Plain PyTorch slab forecast (the reference's
+    ``event_scan_slab_xla``): each row's next ``k`` completions under
+    uninterrupted Fig 8 dynamics, from one rank pass.  Returns (t_wave
+    f32[R, k], time from now of the w-th completion, BIG-padded;
+    col_wave i32[R, k], J-padded).  ``assoc`` picks the wave-matrix
+    product over the sequential recurrence, ``tree`` its balanced-tree
+    order (the kernel's) over ``associative_scan``'s; ``live`` False
+    masks every row off.  Wave 0 is ``event_scan``'s (t_min, argmin)."""
+    PLAIN_CALLS["event_scan_slab"] += 1
+    if k < 1:
+        raise ValueError("the slab needs k >= 1")
+    r, j = remaining.shape
+    remaining, tie, policy, pe_blocked, row_ok = _default_inputs(
+        remaining, tie, policy, pe_blocked, row_ok)
+    row_ok = _live_rows(row_ok, live)
+    mips = mips_eff.to(torch.float32)[:, None]
+    npe = num_pe.to(torch.float32)[:, None]
+    pol = policy[:, None]
+    npe_e, valid, g = _row_masks(remaining, npe, pol, pe_blocked[:, None],
+                                 row_ok[:, None])
+    rank, _, _ = _lexsort_rank(remaining, tie, valid)
+    col = torch.arange(j, dtype=torch.int32,
+                       device=remaining.device).expand(r, j)
+    if assoc:
+        return _slab_waves_assoc(remaining, rank, valid, g, mips, npe_e,
+                                 pol, col, k, tree=tree)
+    return _slab_waves(remaining, rank, valid, g, mips, npe_e, pol, col, k)
+
+
 def _link_inputs(remaining, baud, bg, tie, cap):
     """Defaults and dtypes of the link scan: tie = column index, bg = 0,
     cap = None (no trunk).  Row vectors come back as [L]."""
@@ -245,46 +413,6 @@ def event_frontier_ref(cand, sizes, cuts=None):
 # CUDA kernels (csrc/event_scan.cu), built at first use
 # ----------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _lib():
-    from . import _build
-    lib = _build.library()
-    if not getattr(lib, "_repro_torch_bound", False):
-        lib.event_scan_launch.argtypes = [_P] * 13 + [_I, _I, _P]
-        lib.event_scan_launch.restype = _I
-        lib.event_frontier_launch.argtypes = [_P, _P, _P, _I,
-                                              _P, _P, _P, _P]
-        lib.event_frontier_launch.restype = _I
-        lib.link_scan_launch.argtypes = [_P] * 9 + [_I, _I, _P]
-        lib.link_scan_launch.restype = _I
-        lib._repro_torch_bound = True
-    return lib
-
-
-def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
-def _check(t, name, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
 def event_scan_cuda(remaining, mips_eff, num_pe, tie=None, policy=None,
                     pe_blocked=None, row_ok=None, *, with_rank=False,
                     rank=None):
@@ -321,13 +449,51 @@ def event_scan_cuda(remaining, mips_eff, num_pe, tie=None, policy=None,
             _ptr(remaining), _ptr(tie), _ptr(mips), _ptr(npe),
             _ptr(policy), _ptr(pe_blocked), _ptr(row_ok), _ptr(rank),
             _ptr(rate), _ptr(tmin), _ptr(amin), _ptr(occ), _ptr(rank_out),
-            r, j, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            r, j, _stream(dev))
         _raise_on(err, "event_scan")
         LAUNCHES["event_scan"] += 1
     res = (rate, tmin, amin, occ)
     if with_rank:
         res = res + (rank if rank is not None else rank_out,)
     return res
+
+
+def event_scan_slab_cuda(remaining, mips_eff, num_pe, k, tie=None,
+                         policy=None, pe_blocked=None, row_ok=None,
+                         live=None, *, assoc=True):
+    """:func:`event_scan_slab_ref` as one CUDA kernel launch (same
+    arguments and outputs, bitwise; the associative form composes in
+    the balanced tree, as ``event_scan_slab_ref(tree=True)`` does)."""
+    if remaining.device.type != "cuda":
+        raise ValueError("event_scan_slab_cuda takes CUDA tensors")
+    if not 1 <= k <= 256:
+        raise ValueError("the slab kernel takes 1 <= k <= 256")
+    r, j = remaining.shape
+    dev = remaining.device
+    remaining, tie, policy, pe_blocked, row_ok = _default_inputs(
+        remaining, tie, policy, pe_blocked, row_ok)
+    row_ok = _live_rows(row_ok, live)
+    remaining, tie, policy, pe_blocked, row_ok = (
+        x.contiguous() for x in (remaining, tie, policy, pe_blocked, row_ok))
+    mips = mips_eff.to(torch.float32).contiguous()
+    npe = num_pe.to(torch.float32).contiguous()
+    f32 = torch.float32
+    _check(remaining, "remaining", (r, j), f32, dev)
+    _check(tie, "tie", (r, j), f32, dev)
+    for name, v in (("mips_eff", mips), ("num_pe", npe),
+                    ("policy", policy), ("pe_blocked", pe_blocked),
+                    ("row_ok", row_ok)):
+        _check(v, name, (r,), f32, dev)
+    t_wave = torch.empty((r, k), dtype=f32, device=dev)
+    col_wave = torch.empty((r, k), dtype=torch.int32, device=dev)
+    if r:
+        err = _lib().event_scan_slab_launch(
+            _ptr(remaining), _ptr(tie), _ptr(mips), _ptr(npe), _ptr(policy),
+            _ptr(pe_blocked), _ptr(row_ok), _ptr(t_wave), _ptr(col_wave),
+            r, j, k, int(bool(assoc)), _stream(dev))
+        _raise_on(err, "event_scan_slab")
+        LAUNCHES["event_scan_slab"] += 1
+    return t_wave, col_wave
 
 
 def link_scan_cuda(remaining, baud, bg=None, tie=None, cap=None):
@@ -355,7 +521,7 @@ def link_scan_cuda(remaining, baud, bg=None, tie=None, cap=None):
         err = _lib().link_scan_launch(
             _ptr(rem), _ptr(tie), _ptr(baud), _ptr(bg), _ptr(cap),
             _ptr(rate), _ptr(tmin), _ptr(amin), _ptr(occ), l, t_n,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            _stream(dev))
         _raise_on(err, "link_scan")
         LAUNCHES["link_scan"] += 1
     return rate, tmin, amin, occ
@@ -394,7 +560,7 @@ def event_frontier_cuda(cand, sizes, cuts=None):
         err = _lib().event_frontier_launch(
             _ptr(cand), _ptr(cuts), _ptr(off), n_src, _ptr(mins),
             _ptr(counts), _ptr(safe),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            _stream(dev))
         _raise_on(err, "event_frontier")
         LAUNCHES["event_frontier"] += 1
     return _frontier_finish(mins, counts, safe)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch
-version, bitwise, and small experiments (analytic links, and contended
+version (bitwise, but for ssd_scan and flash_attention, held at the
+reference's kernel-vs-oracle tolerances), and small experiments (analytic links, and contended
 links behind a trunk) on the card equal to the same experiments on the
 CPU.  Marked ``gpu``; where ``torch.cuda`` is not
 available every test skips.  Run on a card with
@@ -11,7 +12,9 @@ import torch
 
 from repro_torch.core import gridlet, resource, simulation
 from repro_torch.kernels import event_scan as ek
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as sk
 
 pytestmark = pytest.mark.gpu
 
@@ -20,6 +23,8 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' f32 products stay in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -60,12 +65,63 @@ def _check_event_scan(r, j, cuda):
 
 
 def _check_refused_launch(cuda):
-    """A row too wide for shared memory is refused at launch, and the
-    wrapper raises instead of returning unwritten outputs."""
+    """A row too wide for shared memory, or an SSD chunk too long, is
+    refused at launch, and the wrapper raises instead of returning
+    unwritten outputs."""
     rem = torch.ones((2, 30000), device=cuda)
+    one = torch.ones(2, device=cuda)
     with pytest.raises(RuntimeError, match="event_scan"):
-        ek.event_scan_cuda(rem, torch.ones(2, device=cuda),
-                           torch.ones(2, device=cuda))
+        ek.event_scan_cuda(rem, one, one)
+    with pytest.raises(RuntimeError, match="event_scan_slab"):
+        ek.event_scan_slab_cuda(rem, one, one, 4)
+    s, n = 2048, 128
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        sk.ssd_scan_cuda(torch.ones((1, s, 1, 64), device=cuda),
+                         torch.ones((1, s, 1), device=cuda),
+                         -torch.ones(1, device=cuda),
+                         torch.ones((1, s, n), device=cuda),
+                         torch.ones((1, s, n), device=cuda), chunk=s)
+
+
+def _check_slab(r, j, cuda):
+    rem, tie, mips, npe, pol, blk, ok = _scan_case(r, j, r + j, cuda)
+    kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok)
+    for k in (1, 4, 8):
+        for assoc in (True, False):
+            for live in (None, torch.tensor(False, device=cuda)):
+                want = ek.event_scan_slab_ref(rem, mips, npe, k, live=live,
+                                              assoc=assoc, tree=True, **kw)
+                got = ek.event_scan_slab_cuda(rem, mips, npe, k, live=live,
+                                              assoc=assoc, **kw)
+                assert all(_bits_equal(a, b) for a, b in zip(want, got))
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               rtol=tol, atol=tol)
+
+
+def _check_ssd(b, s, h, p, n, chunk, dtype, cuda):
+    g = torch.Generator().manual_seed(s + h)
+    x = torch.randn((b, s, h, p), generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g))
+    a = -torch.exp(torch.randn(h, generator=g) * 0.3)
+    bm, cm = torch.randn((2, b, s, n), generator=g)
+    args = [t.to(cuda) for t in (x, dt, a, bm, cm)]
+    tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
+    _close(sk.ssd_scan_cuda(*args, chunk=chunk),
+           sk.ssd_scan_ref(*args, chunk=chunk), tol)
+
+
+def _check_flash(b, hq, hkv, s, d, causal, window, cap, dtype, cuda):
+    g = torch.Generator().manual_seed(s + d)
+    q = torch.randn((b, hq, s, d), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((b, hkv, s, d), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, cap=cap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    _close(fk.flash_attention_cuda(q, k, v, **kw),
+           fk.flash_attention_ref(q, k, v, **kw), tol)
 
 
 def _check_event_frontier(sizes, cuda):
@@ -115,17 +171,25 @@ def _check_card_tensors_never_reach_the_plain_versions(cuda):
     ops.event_scan(rem, mips, npe, tie=tie, policy=pol)
     ops.event_frontier(torch.ones(4, device=cuda), (1, 3))
     ops.link_scan(rem, mips)
-    assert ek.PLAIN_CALLS == {"event_scan": 0, "event_frontier": 0,
-                              "link_scan": 0}
-    assert ek.LAUNCHES == {"event_scan": 1, "event_frontier": 1,
-                           "link_scan": 1}
+    ops.event_scan_slab(rem, mips, npe, 4, tie=tie, policy=pol)
+    x = torch.ones((1, 32, 2, 16), device=cuda)
+    ops.ssd_scan(x, torch.ones((1, 32, 2), device=cuda),
+                 -torch.ones(2, device=cuda),
+                 torch.ones((1, 32, 8), device=cuda),
+                 torch.ones((1, 32, 8), device=cuda), chunk=16)
+    q = torch.ones((1, 2, 40, 32), device=cuda)
+    ops.flash_attention(q, q, q)
+    assert ek.PLAIN_CALLS == dict.fromkeys(ek.PLAIN_CALLS, 0)
+    assert ek.LAUNCHES == dict.fromkeys(ek.LAUNCHES, 1)
 
 
 def test_kernels_match_plain_on_the_card(cuda):
-    """Every kernel bitwise against its plain version (event_scan in its
-    fresh and injected-rank forms, link_scan with and without the trunk
-    cap), a refused launch, and the router sending card tensors only to
-    the kernels."""
+    """Every kernel against its plain version (event_scan in its fresh
+    and injected-rank forms, link_scan with and without the trunk cap,
+    the slab in both forms with and without the live gate -- all
+    bitwise; ssd_scan and flash_attention at the reference's
+    tolerances), refused launches, and the router sending card tensors
+    only to the kernels."""
     for r, j in ((8, 1), (16, 32), (16, 640), (8, 2000), (3, 3000)):
         _check_event_scan(r, j, cuda)
     _check_refused_launch(cuda)
@@ -134,6 +198,20 @@ def test_kernels_match_plain_on_the_card(cuda):
         _check_event_frontier(sizes, cuda)
     for l, t in ((8, 1), (16, 32), (16, 640), (8, 2000), (6, 3000)):
         _check_link_scan(l, t, cuda)
+    for r, j in ((8, 1), (8, 12), (16, 640), (3, 2000)):
+        _check_slab(r, j, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1, 32, 4, 8, 16, 8), (2, 64, 8, 16, 32, 16),
+                      (1, 512, 2, 64, 128, 256), (1, 100, 3, 24, 40, 50)):
+            _check_ssd(*shape, dtype, cuda)
+        for shape in ((1, 2, 2, 64, 16, True, 0, 0.0),
+                      (2, 4, 1, 128, 32, True, 32, 0.0),
+                      (1, 8, 8, 256, 64, True, 0, 50.0),
+                      (1, 2, 2, 64, 16, False, 0, 0.0),
+                      (2, 6, 2, 96, 16, True, 16, 30.0),
+                      (1, 4, 1, 200, 256, True, 64, 0.0),
+                      (1, 2, 1, 130, 128, False, 0, 0.0)):
+            _check_flash(*shape, dtype, cuda)
     _check_card_tensors_never_reach_the_plain_versions(cuda)
 
 

@@ -1,20 +1,27 @@
 """The port's kernel module (repro_torch.kernels) against the JAX
-reference: the plain PyTorch versions of ``event_scan``, ``link_scan``
-and ``event_frontier`` must equal the Pallas kernels (interpret mode)
-and the XLA paths bit for bit.  The CUDA kernels themselves run only on a
-card: tests/test_torch_gpu.py and chip_smoke.py."""
+reference: the plain PyTorch versions of ``event_scan``,
+``event_scan_slab``, ``link_scan`` and ``event_frontier`` must equal the
+Pallas kernels (interpret mode) and the XLA paths bit for bit; those of
+``ssd_scan`` and ``flash_attention`` must agree with the Pallas kernels
+and the reference's oracles within the reference's own kernel-vs-oracle
+tolerances.  The CUDA kernels themselves run only on a card:
+tests/test_torch_gpu.py and chip_smoke.py."""
 import gc
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import event_scan as jax_event
 from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels import event_scan as ek
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as sk
 
 # The tensors here are tiny: intra-op threads would only contend with
 # the other test workers.
@@ -219,6 +226,122 @@ def test_event_frontier_plain_matches_pallas_and_xla():
             _assert_bitwise(port, xla, names)
 
 
+def _slab_case(r, j, seed):
+    """The reference's slab case: empty slots, integer remaining values
+    on odd seeds (ties within and across rows), a permuted tie key,
+    mixed policies, blocked PEs and down rows."""
+    rng = np.random.RandomState(seed)
+    rem = rng.exponential(50.0, (r, j)).astype(np.float32)
+    rem[rng.rand(r, j) < 0.3] = 0.0
+    if seed % 2:
+        rem = np.where(rem > 0, rng.randint(1, 5, (r, j)), 0.0).astype(
+            np.float32)
+    mips = rng.uniform(1.0, 500.0, (r,)).astype(np.float32)
+    npe = rng.randint(1, 9, (r,)).astype(np.int32)
+    kw = dict(tie=rng.permutation(r * j).reshape(r, j).astype(np.float32),
+              policy=rng.randint(0, 2, (r,)).astype(np.int32),
+              pe_blocked=rng.randint(0, 4, (r,)).astype(np.float32),
+              row_ok=(rng.rand(r) < 0.8).astype(np.float32))
+    return rem, mips, npe, kw
+
+
+def test_event_scan_slab_plain_matches_pallas_and_xla():
+    """``event_scan_slab_ref`` bit for bit against the reference router's
+    XLA path (``associative_scan`` order) and the Pallas kernel in
+    interpret mode (``tree=True``), sequential and associative, with
+    the live gate open, shut and absent, at k in {1, 4, 6}; wave 0
+    against the port's own ``event_scan``."""
+    names = ("t_wave", "col_wave")
+    for (r, j), seed in (((8, 12), 1), ((16, 40), 3), ((16, 40), 4)):
+        rem, mips, npe, kw = _slab_case(r, j, seed)
+        t = {a: torch.from_numpy(v) for a, v in kw.items()}
+        args = [torch.from_numpy(x) for x in (rem, mips, npe)]
+        for k in (1, 4, 6):
+            lives = (None, True, False) if k == 4 else (None,)
+            for assoc in (True, False):
+                for live in lives:
+                    jl = None if live is None else np.bool_(live)
+                    tl = None if live is None else torch.tensor(live)
+                    xla = jax_ops.event_scan_slab(rem, mips, npe, k, **kw,
+                                                  live=jl, assoc=assoc)
+                    pallas = jax_ops.event_scan_slab(
+                        rem, mips, npe, k, **kw, live=jl, assoc=assoc,
+                        interpret=True)
+                    port = ops.event_scan_slab(*args, k, **t, live=tl,
+                                               assoc=assoc)
+                    tree = ek.event_scan_slab_ref(*args, k, **t, live=tl,
+                                                  assoc=assoc, tree=True)
+                    _assert_bitwise(port, xla, names)
+                    _assert_bitwise(tree, pallas, names)
+                    if live is False:
+                        assert (port[1] == j).all()
+        _, tmin, amin, _ = ops.event_scan(*args, **t)
+        for assoc in (True, False):
+            t_w, col_w = ops.event_scan_slab(*args, 3, **t, assoc=assoc)
+            _assert_bitwise((t_w[:, 0], col_w[:, 0]), (tmin, amin), names)
+    jax.clear_caches()
+
+
+def test_ssd_scan_plain_matches_pallas_and_oracle():
+    """``ssd_scan_ref`` against the Pallas kernel (interpret mode) and
+    the token-by-token oracle, in f32 and bf16, at the reference's
+    tolerances (5e-4, 5e-2)."""
+    for b, s, h, p, n, chunk, block_h in ((2, 64, 8, 16, 32, 16, 4),
+                                          (2, 48, 2, 8, 8, 16, 2)):
+        rng = np.random.RandomState(s + h)
+        x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(
+            np.float32)
+        a = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+        bm, cm = rng.standard_normal((2, b, s, n)).astype(np.float32)
+        for jd, td, tol in ((jnp.float32, torch.float32, 5e-4),
+                            (jnp.bfloat16, torch.bfloat16, 5e-2)):
+            jx = jnp.asarray(x, jd)
+            want = [jax_ops.ssd_scan(jx, dt, a, bm, cm, chunk=chunk,
+                                     block_h=block_h, interpret=True),
+                    jax_ref.ssd_ref(jx, dt, a, bm, cm)]
+            got = ops.ssd_scan(torch.from_numpy(x).to(td),
+                               *map(torch.from_numpy, (dt, a, bm, cm)),
+                               chunk=chunk, block_h=block_h)
+            assert got.dtype == td
+            for w in want:
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(w, np.float32),
+                    rtol=tol, atol=tol)
+    jax.clear_caches()
+
+
+def test_flash_attention_plain_matches_pallas_and_oracle():
+    """``flash_attention_ref`` against the Pallas kernel (interpret
+    mode) and the reference's oracle with GQA and a window, a soft-cap,
+    and without the causal mask, in f32 and bf16, at the reference's
+    tolerances (2e-5, 2e-2)."""
+    for b, hq, hkv, s, d, causal, window, cap in (
+            (2, 4, 1, 128, 32, True, 32, 0.0),
+            (1, 8, 8, 256, 64, True, 0, 50.0),
+            (1, 2, 2, 64, 16, False, 0, 0.0)):
+        rng = np.random.RandomState(s + d)
+        q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+        k, v = rng.standard_normal((2, b, hkv, s, d)).astype(np.float32)
+        kw = dict(causal=causal, window=window, cap=cap)
+        for jd, td, tol in ((jnp.float32, torch.float32, 2e-5),
+                            (jnp.bfloat16, torch.bfloat16, 2e-2)):
+            jq, jk, jv = (jnp.asarray(x, jd) for x in (q, k, v))
+            want = [jax_ops.flash_attention(jq, jk, jv, block_q=32,
+                                            block_kv=32, interpret=True,
+                                            **kw),
+                    jax_ref.flash_attention_ref(jq, jk, jv, **kw)]
+            got = ops.flash_attention(
+                *(torch.from_numpy(x).to(td) for x in (q, k, v)),
+                block_q=32, block_kv=32, **kw)
+            assert got.dtype == td
+            for w in want:
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(w, np.float32),
+                    rtol=tol, atol=tol)
+    jax.clear_caches()
+
+
 def test_cpu_tensors_route_to_plain_versions():
     rem, tie, mips, npe, pol, blk, ok = _scan_case(8, 9, seed=1)
     ek.reset_counts()
@@ -226,10 +349,19 @@ def test_cpu_tensors_route_to_plain_versions():
                    torch.from_numpy(npe), tie=torch.from_numpy(tie))
     ops.event_frontier(torch.ones(4), (1, 3))
     ops.link_scan(torch.from_numpy(rem), torch.from_numpy(mips))
-    assert ek.PLAIN_CALLS == {"event_scan": 1, "event_frontier": 1,
-                              "link_scan": 1}
-    assert ek.LAUNCHES == {"event_scan": 0, "event_frontier": 0,
-                           "link_scan": 0}
+    ops.event_scan_slab(torch.from_numpy(rem), torch.from_numpy(mips),
+                        torch.from_numpy(npe), 2)
+    x = torch.ones((1, 8, 2, 4))
+    ops.ssd_scan(x, torch.ones((1, 8, 2)), -torch.ones(2),
+                 torch.ones((1, 8, 3)), torch.ones((1, 8, 3)), chunk=4)
+    q = torch.ones((1, 2, 8, 16))
+    ops.flash_attention(q, q, q)
+    assert ek.PLAIN_CALLS == dict.fromkeys(
+        ("event_scan", "event_frontier", "link_scan", "event_scan_slab",
+         "ssd_scan", "flash_attention"), 1)
+    assert ek.LAUNCHES == dict.fromkeys(ek.PLAIN_CALLS, 0)
+    # one pair of counters, shared by every kernel module
+    assert sk.LAUNCHES is ek.LAUNCHES and fk.PLAIN_CALLS is ek.PLAIN_CALLS
     # the kernels' own wrappers take no CPU tensor
     with pytest.raises(ValueError):
         ek.event_scan_cuda(torch.ones(8, 4), torch.ones(8), torch.ones(8))
@@ -237,6 +369,14 @@ def test_cpu_tensors_route_to_plain_versions():
         ek.event_frontier_cuda(torch.ones(4), (1, 3))
     with pytest.raises(ValueError):
         ek.link_scan_cuda(torch.ones(8, 4), torch.ones(8))
+    with pytest.raises(ValueError):
+        ek.event_scan_slab_cuda(torch.ones(8, 4), torch.ones(8),
+                                torch.ones(8), 2)
+    with pytest.raises(ValueError):
+        sk.ssd_scan_cuda(x, torch.ones((1, 8, 2)), -torch.ones(2),
+                         torch.ones((1, 8, 3)), torch.ones((1, 8, 3)))
+    with pytest.raises(ValueError):
+        fk.flash_attention_cuda(q, q, q)
 
 
 def test_failed_build_and_launch_raise(monkeypatch):
