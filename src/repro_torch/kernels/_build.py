@@ -4,7 +4,9 @@ C interface, loaded with ``ctypes``.
 
 The library lands in ``build/repro_torch/`` at the repository root,
 named by a hash of the sources, headers and flags, so an edit rebuilds
-and an unchanged tree reuses it.  ``-prec-div=true -fmad=false`` and no
+and an unchanged tree reuses it; nvcc's output (``-Xptxas -v``: each
+kernel's registers, shared memory and spills) is kept beside it, in
+:func:`log_path`.  ``-prec-div=true -fmad=false`` and no
 ``--use_fast_math``: the kernels must divide and multiply exactly as
 the plain PyTorch versions do.
 """
@@ -50,6 +52,10 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
+def log_path() -> pathlib.Path:
+    return library_path().with_suffix(".log")
+
+
 def _run(procs):
     """Waits for every process; raises with the output of the first that
     failed.  Returns the concatenated output."""
@@ -88,6 +94,7 @@ def build(verbose: bool = False) -> pathlib.Path:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
         if verbose:
             print(log)
+        log_path().write_text(log)
         os.replace(lib, out)
     return out
 
