@@ -6,10 +6,11 @@ Phases (any failure exits non-zero before the result line):
 
 1. card     -- the card's name and power limit (nvidia-smi);
 2. build    -- nvcc builds the kernels from src/repro_torch/kernels/csrc;
-               each flash_attention instance's registers and spill bytes
-               from ptxas (a bf16 instance that spills fails), and the
-               tensor-core instructions (HGMMA) in each bf16 instance's
-               SASS, from cuobjdump (none fails);
+               each flash_attention and ssd_scan kernel's registers and
+               spill bytes from ptxas, and its tensor-core instructions
+               (HGMMA, HMMA) from cuobjdump's SASS: a bf16 flash instance
+               or an SSD pass that multiplies matrices (states, output)
+               fails if it spills or has no tensor-core instruction;
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                bitwise, at the engine's shapes (link_scan with and
                without the trunk cap);
@@ -31,10 +32,18 @@ Phases (any failure exits non-zero before the result line):
                slab bitwise, SSD and f32 attention at the reference's
                kernel-vs-oracle tolerances, bf16 attention per query
                row: its largest error within 2e-2 of its largest |o|);
-6. times    -- each kernel's device time (profiler) and call time (CUDA
-               events) at the main-path and kernel-API shapes, beside its
-               plain version, its bound and, where one PyTorch call
-               computes the same function, that call's time;
+               SSD also with Mamba-2's own initialisation of dt and A,
+               whose slow-decaying heads reach keys far below the
+               diagonal and the state carried across chunks; each SSD
+               case prints its worst |err| / (tol + tol |want|) and the
+               blocks of its three passes;
+6. times    -- each kernel's device time per call (profiler: the sum
+               over the call's launches, every launch of every kernel of
+               the call recorded, the profile repeated when records are
+               missing) and call time (CUDA events) at the main-path and
+               kernel-API shapes, beside its plain version, its bound
+               and, where one PyTorch call computes the same function,
+               that call's time;
 7. profile  -- the first WINDOW supersteps of 20u_100j and of
                20u_100j_net under the profiler: device busy time, idle
                share, top kernels.  Last: the profiler drops records
@@ -62,6 +71,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 MAIN_CELL = "20u_100j"
 NET_CELL = "20u_100j_net"
 # cell -> (reference file, the kernels its path runs)
@@ -76,14 +86,18 @@ LINK_SHAPES = ((16, 640), (16, 32), (8, 2000))
 WINDOW = 300          # supersteps of the main path under the profiler
 # The kernel-API phase: job tables of 20u_100j, 4u_512j and the fleet
 # scale of the reference's slab test; SSD layers (name, B, S, H, P, N,
-# chunk, x dtype) and attention layers (name, B, Hq, Hkv, S, d, causal,
-# window, cap, dtype) at published widths (src/repro/configs).
+# chunk, x dtype, draws of dt and A: "test" as tests/test_kernels.py
+# draws them, "mamba2" as Mamba-2 initialises them) and attention layers
+# (name, B, Hq, Hkv, S, d, causal, window, cap, dtype) at published
+# widths (src/repro/configs).
 SLAB_SHAPES = ((16, 640), (8, 640), (256, 128))
 SLAB_KS = (1, 4, 8)
 BF16, F32 = torch.bfloat16, torch.float32
-SSD_CASES = (("mamba2-130m", 2, 4096, 24, 64, 128, 256, BF16),
-             ("zamba2-1.2b", 2, 4096, 64, 64, 64, 256, BF16),
-             ("mamba2-130m", 2, 4096, 24, 64, 128, 256, F32))
+SSD_CASES = (("mamba2-130m", 2, 4096, 24, 64, 128, 256, BF16, "test"),
+             ("zamba2-1.2b", 2, 4096, 64, 64, 64, 256, BF16, "test"),
+             ("mamba2-130m", 2, 4096, 24, 64, 128, 256, F32, "test"),
+             ("mamba2-130m", 2, 4096, 24, 64, 128, 256, BF16, "mamba2"),
+             ("mamba2-130m", 2, 4096, 24, 64, 128, 256, F32, "mamba2"))
 FLASH_CASES = (("qwen2-7b", 1, 28, 4, 4096, 128, True, 0, 0.0, BF16),
                ("gemma2-27b local", 1, 32, 16, 8192, 128, True, 4096, 50.0,
                 BF16),
@@ -95,12 +109,17 @@ SSD_TOL = {BF16: 5e-2, F32: 5e-4}     # tests/test_kernels.py:87
 # tests/test_kernels.py:47; bf16 is held per query row (row_rel_err)
 FLASH_TOL = {BF16: 2e-2, F32: 2e-5}
 API = ("event_scan_slab", "ssd_scan", "flash_attention")
-KERNEL_NAME = {"event_scan": "event_scan_kernel",
-               "event_frontier": "event_frontier_kernel",
-               "link_scan": "link_scan_kernel",
-               "event_scan_slab": "event_scan_slab_kernel",
-               "ssd_scan": "ssd_kernel",
-               "flash_attention": "flash_kernel"}
+# the kernels one call of each wrapper launches (a name matches every
+# kernel whose name contains it)
+KERNEL_NAME = {"event_scan": ("event_scan_kernel",),
+               "event_frontier": ("event_frontier_kernel",),
+               "link_scan": ("link_scan_kernel",),
+               "event_scan_slab": ("event_scan_slab_kernel",),
+               "ssd_scan": ("ssd_states_kernel", "ssd_pass_kernel",
+                            "ssd_output_kernel"),
+               "flash_attention": ("flash_kernel",)}
+# the SSD passes that multiply matrices (on the tensor cores)
+SSD_PRODUCTS = ("states", "output")
 SOURCE = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
           "flash_attention": "src/repro_torch/kernels/csrc/"
                              "flash_attention.cu"}
@@ -124,23 +143,30 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def flash_instance(mangled):
-    """'bf16 d=128' or 'f32 d=64' for a flash_attention kernel's mangled
+def instance(mangled):
+    """'flash_attention bf16 d=128', 'flash_attention f32 d=64',
+    'ssd_scan states bf16', 'ssd_scan pass' ... for a kernel's mangled
     name, else None."""
     m = re.search(r"flash_kernel(_wgmma)?ILi(\d+)E", mangled)
-    if m is None:
-        return None
-    return f"{'bf16' if m.group(1) else 'f32'} d={m.group(2)}"
+    if m is not None:
+        return (f"flash_attention {'bf16' if m.group(1) else 'f32'} "
+                f"d={m.group(2)}")
+    m = re.search(r"ssd_(states|pass|output)_kernel(I(f|13__nv_bfloat16)E)?",
+                  mangled)
+    if m is not None:
+        dtype = {None: "", "f": " f32"}.get(m.group(3), " bf16")
+        return f"ssd_scan {m.group(1)}{dtype}"
+    return None
 
 
 def ptxas_report(log):
-    """{flash instance: (registers, spill bytes)} from nvcc's -Xptxas -v
+    """{kernel instance: (registers, spill bytes)} from nvcc's -Xptxas -v
     output (spill stores plus spill loads)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = flash_instance(m.group(1))
+            name = instance(m.group(1))
             if name:
                 out[name] = [None, 0]
             continue
@@ -157,7 +183,7 @@ def ptxas_report(log):
 
 
 def tensor_core_ops(lib, cuobjdump):
-    """{flash instance: number of HGMMA / HMMA instructions} in the
+    """{kernel instance: number of HGMMA / HMMA instructions} in the
     library's SASS."""
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -165,7 +191,7 @@ def tensor_core_ops(lib, cuobjdump):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = flash_instance(m.group(1))
+            name = instance(m.group(1))
             if name:
                 out[name] = {"HGMMA": 0, "HMMA": 0}
             continue
@@ -176,9 +202,11 @@ def tensor_core_ops(lib, cuobjdump):
     return out
 
 
-def check_flash_build(failures):
-    """Registers and spills of every flash instance (ptxas), and the
-    tensor-core instructions of every bf16 instance (cuobjdump)."""
+def check_kernel_build(failures):
+    """Registers and spills (ptxas) and tensor-core instructions
+    (cuobjdump) of every flash_attention and ssd_scan kernel; the bf16
+    flash instances and the SSD passes that multiply matrices must have
+    no spill and at least one tensor-core instruction."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fk
     regs = ptxas_report(_build.log_path().read_text())
@@ -187,18 +215,23 @@ def check_flash_build(failures):
     for name in sorted(set(regs) | set(mma)):
         n_reg, spill = regs.get(name, (None, None))
         ops = mma.get(name, {})
-        print(f"flash_attention {name}: {n_reg} registers, {spill} bytes "
-              f"spilled, SASS {ops}", flush=True)
-        if name.startswith("bf16"):
+        print(f"{name}: {n_reg} registers, {spill} bytes spilled, SASS "
+              f"{ops}", flush=True)
+        if (name.startswith("flash_attention bf16") or
+                name.split()[:2] in (["ssd_scan", p] for p in SSD_PRODUCTS)):
             if spill != 0:
-                failures.append(f"flash_attention {name}: ptxas reports "
-                                f"{spill} spill bytes")
+                failures.append(f"{name}: ptxas reports {spill} spill bytes")
             if not ops.get("HGMMA") and not ops.get("HMMA"):
-                failures.append(f"flash_attention {name}: no tensor-core "
-                                f"instruction in its SASS")
-    if sum(n.startswith("bf16") for n in mma) != len(fk.HEAD_DIMS):
-        failures.append(f"flash_attention: {sorted(mma)} in the SASS, "
-                        f"expected {len(fk.HEAD_DIMS)} bf16 instances")
+                failures.append(f"{name}: no tensor-core instruction in "
+                                f"its SASS")
+    n_flash = sum(n.startswith("flash_attention bf16") for n in mma)
+    if n_flash != len(fk.HEAD_DIMS):
+        failures.append(f"flash_attention: {n_flash} bf16 instances in the "
+                        f"SASS, expected {len(fk.HEAD_DIMS)}")
+    n_ssd = sum(n.startswith("ssd_scan") for n in mma)
+    if n_ssd != 2 * len(SSD_PRODUCTS) + 1:
+        failures.append(f"ssd_scan: {n_ssd} kernels in the SASS, expected "
+                        f"{2 * len(SSD_PRODUCTS) + 1}")
 
 
 def bits_equal(a, b):
@@ -306,35 +339,69 @@ def device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, kernel=None, reps=100):
-    """Mean device time (ms) from the profiler: per launch of the kernel
-    whose name contains ``kernel`` (over the launches it recorded), or
-    per call of every kernel ``fn`` launched.  None when the profiler
-    recorded no device time."""
+def device_ms(fn, kernels=None, reps=100, tries=3):
+    """Device time (ms) per call of ``fn`` from the profiler.  With
+    ``kernels`` (names, each launched once per call): the sum over the
+    names of the mean time of that name's launches, so a record the
+    profiler drops shifts no time between kernels; the profile is taken
+    again, up to ``tries`` times, until every name has ``reps`` records,
+    else the shortfall is printed.  Returns (ms, {name: ms}), or
+    (None, {}) when no device time was recorded.  Without ``kernels``:
+    every kernel ``fn`` launched, summed and divided by ``reps``."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in device_events(prof)
-             if kernel is None or kernel in e.name]
-    if kernel is not None and len(times) != reps:
-        print(f"  (the profiler recorded {len(times)} of {reps} launches of "
-              f"{kernel})", flush=True)
-    n = reps if kernel is None else len(times)
-    return sum(times) / n / 1e3 if sum(times) > 0 else None
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if kernels is None:
+            total = sum(e.time_range.elapsed_us() for e in events)
+            return (total / reps / 1e3 if total > 0 else None), {}
+        times = {k: [e.time_range.elapsed_us() for e in events
+                     if k in e.name] for k in kernels}
+        counts = {k: len(v) for k, v in times.items()}
+        if all(n == reps for n in counts.values()):
+            break
+        print(f"  (profile {attempt + 1}: {sum(counts.values())} of "
+              f"{reps * len(kernels)} records, calls x launches per call; "
+              f"per kernel {counts})", flush=True)
+    if not all(times.values()) or not any(sum(v) for v in times.values()):
+        return None, {}
+    per = {k: sum(v) / len(v) / 1e3 for k, v in times.items()}
+    return sum(per.values()), per
 
 
-def ssd_inputs(b, s, h, p, n, dtype, gen, dev):
-    """x ~ N(0, 1) in the working type, dt = softplus(N(0, 1)), a =
-    -exp(0.3 N(0, 1)), B and C ~ N(0, 1): the reference test's draws."""
+def ssd_inputs(b, s, h, p, n, dtype, draws, gen, dev):
+    """x ~ N(0, 1) in the working type, B and C ~ N(0, 1); dt and a as
+    the reference test draws them ("test": dt = softplus(N(0, 1)), a =
+    -exp(0.3 N(0, 1)), a row decays by ~e^-0.8 a step) or as Mamba-2
+    initialises them ("mamba2": dt log-uniform in [1e-3, 1e-1], A =
+    -U[1, 16]; mamba_ssm/modules/mamba2.py, Mamba2.__init__'s dt_min,
+    dt_max and A_init_range), whose slow heads carry keys 100s of steps
+    back and the state across chunks."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
     x = randn(b, s, h, p).to(dtype)
-    dt = torch.nn.functional.softplus(randn(b, s, h))
-    a = -torch.exp(randn(h) * 0.3)
+    if draws == "test":
+        dt = torch.nn.functional.softplus(randn(b, s, h))
+        a = -torch.exp(randn(h) * 0.3)
+    else:
+        lo, hi = np.log(1e-3), np.log(1e-1)
+        dt = torch.exp(rand(b, s, h) * (hi - lo) + lo)
+        a = -(1.0 + 15.0 * rand(h))
     return x, dt, a, randn(b, s, n), randn(b, s, n)
+
+
+def allclose_ratio(got, want, tol):
+    """Worst |got - want| / (tol + tol |want|): allclose(rtol=tol,
+    atol=tol) holds where this is at most 1."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
 
 
 def flash_inputs(b, hq, hkv, s, d, dtype, gen, dev):
@@ -377,7 +444,7 @@ def kernel_api(dev, failures):
     gen = torch.Generator().manual_seed(14)
     dgen = torch.Generator(device=dev).manual_seed(14)
     slab_in = {shape: scan_inputs(*shape, gen, dev) for shape in SLAB_SHAPES}
-    ssd_in = [ssd_inputs(*c[1:6], c[7], dgen, dev) for c in SSD_CASES]
+    ssd_in = [ssd_inputs(*c[1:6], c[7], c[8], dgen, dev) for c in SSD_CASES]
     flash_in = [flash_inputs(*c[1:6], c[9], dgen, dev) for c in FLASH_CASES]
     lives = {v: torch.tensor(v, device=dev) for v in (True, False)}
     calls = dict.fromkeys(API, 0)
@@ -435,8 +502,15 @@ def kernel_api(dev, failures):
                 args = ssd_in[SSD_CASES.index(case)]
                 want = sk.ssd_scan_ref(*args, chunk=case[6])
                 tol = SSD_TOL[case[7]]
+                blocks = sk.launch_blocks(*case[1:6], chunk=case[6])
                 shape = (f"B {case[1]} S {case[2]} H {case[3]} P {case[4]}"
-                         f" N {case[5]} chunk {case[6]}")
+                         f" N {case[5]} chunk {case[6]}, {case[8]} draws; "
+                         f"blocks: states {blocks[0]}, pass {blocks[1]}, "
+                         f"output {blocks[2]}")
+                if blocks[0] + blocks[2] < 132:
+                    failures.append(f"ssd_scan {case[0]}: {blocks[0]} + "
+                                    f"{blocks[2]} blocks in the passes "
+                                    f"with products, under 132 SMs")
             else:
                 q, k, v = flash_in[FLASH_CASES.index(case)]
                 want = fk.flash_attention_ref(q, k, v, causal=case[6],
@@ -453,7 +527,9 @@ def kernel_api(dev, failures):
             else:
                 ok_ = bool(torch.allclose(got.float(), want.float(),
                                           rtol=tol, atol=tol))
-                held = f"tolerance {tol}"
+                held = (f"worst |err| / (tol + tol |want|) "
+                        f"{allclose_ratio(got, want, tol):.6g}, tolerance "
+                        f"{tol}")
             label = (f"{name} {case[0]} {str(got.dtype)[6:]} ({shape}): "
                      f"max_abs_err {err:.6g}, {held} "
                      f"{'ok' if ok_ else 'EXCEEDED'}")
@@ -577,7 +653,7 @@ def main():
     ek._lib()
     print(f"built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    check_flash_build(failures)
+    check_kernel_build(failures)
 
     phase("kernels against their plain versions (bitwise)")
     gen = torch.Generator().manual_seed(0)
@@ -733,12 +809,12 @@ def main():
              lambda: ek.link_scan_ref(lrem, lbaud, bg=lbg, tie=ltie),
              link_bytes, link_ops)):
         call_ms = time_ms(fn)
-        ms = device_ms(fn, kernel=f"{name}_kernel")
+        ms, _ = device_ms(fn, kernels=KERNEL_NAME[name])
         if ms is None:
             failures.append(f"{name} {form}: the profiler recorded no "
                             f"device time for {name}_kernel")
         plain_ms = time_ms(plain_fn, reps=50)
-        plain_dev = device_ms(plain_fn)
+        plain_dev, _ = device_ms(plain_fn)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
@@ -775,19 +851,22 @@ def main():
                 srem, smips, snpe, k_slab, assoc=a, tree=True, **skw),
             None, slab_bytes, slab_ops, F32_OPS_PER_S, 200, 20))
     for case, args in zip(SSD_CASES, ssd_in):
-        _, b, s_, h, p_, n, q_, dt_ = case
+        _, b, s_, h, p_, n, q_, dt_, draws = case
         pq = q_ * (q_ + 1) // 2       # causal (query, key) pairs a chunk
         ops_ = b * (s_ // q_) * (2 * pq * n + 2 * pq * h * p_ +
                                  4 * q_ * h * p_ * n)
         nbytes = 2 * args[0].numel() * args[0].element_size() + 4 * (
             b * s_ * h + h + 2 * b * s_ * n)
+        # f32: the least time for the products at f32 accuracy is three
+        # TF32 products each on the tensor cores; bf16 is bound by bytes
+        ops_, peak = ((ops_, BF16_OPS_PER_S) if dt_ == BF16 else
+                      (3 * ops_, TF32_OPS_PER_S))
         timed.append((
-            "ssd_scan", f"{case[0]} {str(dt_)[6:]}",
+            "ssd_scan", f"{case[0]} {str(dt_)[6:]} {draws} draws",
             f"B {b} S {s_} H {h} P {p_} N {n} chunk {q_}",
             lambda a=args, c=q_: sk.ssd_scan_cuda(*a, chunk=c),
             lambda a=args, c=q_: sk.ssd_scan_ref(*a, chunk=c),
-            None, nbytes, ops_,
-            BF16_OPS_PER_S if dt_ == BF16 else F32_OPS_PER_S, 10, 10))
+            None, nbytes, ops_, peak, 10, 10))
     for case, (q, k, v) in zip(FLASH_CASES, flash_in):
         _, b, hq, hkv, s_, d, causal, window, cap, dt_ = case
         kw = dict(causal=causal, window=window, cap=cap)
@@ -807,10 +886,13 @@ def main():
     for (name, form, shape, fn, plain_fn, lib_fn, nbytes, n_ops, peak,
          reps, plain_reps) in timed:
         call_ms = time_ms(fn, reps=reps, warm=min(reps, 10))
-        ms = device_ms(fn, kernel=KERNEL_NAME[name], reps=reps)
+        ms, per = device_ms(fn, kernels=KERNEL_NAME[name], reps=reps)
         if ms is None:
             failures.append(f"{name} {form}: the profiler recorded no "
                             f"device time for {KERNEL_NAME[name]}")
+        if len(per) > 1:
+            print(f"{name} {form}: {len(per)} launches per call, device ms "
+                  f"per call by kernel {per}", flush=True)
         plain_ms = time_ms(plain_fn, reps=plain_reps,
                            warm=min(plain_reps, 3))
         lib_ms = None if lib_fn is None else time_ms(lib_fn, reps=reps,
@@ -819,9 +901,10 @@ def main():
         t_ops = n_ops / peak * 1e3
         bound_ms = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{name} {form} ({shape}): kernel {ms} ms device "
-              f"({call_ms:.5f} ms per call), plain {plain_ms:.5f} ms per "
-              f"call, bound {bound_ms:.7f} ms ({by}: {nbytes} B, {n_ops} "
+        print(f"{name} {form} ({shape}): kernel {ms} ms device per call "
+              f"({call_ms:.5f} ms per call, CUDA events), plain "
+              f"{plain_ms:.5f} ms per call, bound {bound_ms:.7f} ms ({by}: "
+              f"{nbytes} B, {n_ops} "
               f"ops at {peak:.3g}/s), library call: "
               f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}",
               flush=True)

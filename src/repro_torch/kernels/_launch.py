@@ -28,13 +28,15 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 # launcher -> ctypes argument types (every launcher returns its
-# cudaError_t as an int; the last argument is the stream)
+# cudaError_t as an int; the last argument is the stream, but for
+# ssd_scan_blocks, which takes the array it writes the block counts to)
 _SIGNATURES = {
     "event_scan_launch": [P] * 13 + [I, I, P],
     "event_frontier_launch": [P, P, P, I, P, P, P, P],
     "link_scan_launch": [P] * 9 + [I, I, P],
     "event_scan_slab_launch": [P] * 9 + [I, I, I, I, P],
-    "ssd_scan_launch": [P] * 6 + [I] * 7 + [P],
+    "ssd_scan_launch": [P] * 8 + [I] * 7 + [P],
+    "ssd_scan_blocks": [I] * 6 + [P],
     "flash_attention_launch": [P] * 4 + [I] * 8 + [F, F, P],
 }
 

@@ -20,6 +20,8 @@ own kernel-vs-oracle tolerance (5e-4 in f32, 5e-2 in bf16) applies.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ._launch import LAUNCHES, PLAIN_CALLS
@@ -75,8 +77,10 @@ def ssd_scan_ref(x, dt, a, b_mat, c_mat, *, chunk=256):
 
 
 def ssd_scan_cuda(x, dt, a, b_mat, c_mat, *, chunk=256):
-    """:func:`ssd_scan_ref` as one CUDA kernel launch (one block per head
-    and batch row, looping over the chunks in order)."""
+    """:func:`ssd_scan_ref` on the card: three kernels in one launcher
+    call (the chunks' states, the states passed from chunk to chunk, the
+    output; ``csrc/ssd_scan.cu``), with their f32 scratch allocated
+    here.  Refused (RuntimeError) beyond chunk 256, P 64, N 128."""
     if x.device.type != "cuda":
         raise ValueError("ssd_scan_cuda takes CUDA tensors")
     if x.dtype not in DTYPES:
@@ -96,9 +100,23 @@ def ssd_scan_cuda(x, dt, a, b_mat, c_mat, *, chunk=256):
     _check(c_mat, "c_mat", (bs, s, n), f32, dev)
     y = torch.empty_like(x)
     if x.numel():
+        # each chunk's state increment, then (in place) its incoming state;
+        # the running sums of dt * a, [B, S / Q, Q, H]
+        states = torch.empty((bs, s // q, h, p, n), dtype=f32, device=dev)
+        cum = torch.empty((bs, s, h), dtype=f32, device=dev)
         err = _lib().ssd_scan_launch(
             _ptr(x), _ptr(dt), _ptr(a), _ptr(b_mat), _ptr(c_mat), _ptr(y),
-            bs, s, h, p, n, q, int(x.dtype == torch.bfloat16), _stream(dev))
+            _ptr(states), _ptr(cum), bs, s, h, p, n, q,
+            int(x.dtype == torch.bfloat16), _stream(dev))
         _raise_on(err, "ssd_scan")
         LAUNCHES["ssd_scan"] += 1
     return y
+
+
+def launch_blocks(bs, s, h, p, n, *, chunk=256):
+    """The blocks each of the kernel's three passes launches at these
+    widths: (states, pass, output).  Needs the built library."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_lib().ssd_scan_blocks(bs, s, h, p, n, _chunk(s, chunk), out),
+              "ssd_scan")
+    return tuple(out)

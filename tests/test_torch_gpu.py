@@ -7,6 +7,8 @@ available every test skips.  Run on a card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import pytest
 import torch
 
@@ -65,9 +67,9 @@ def _check_event_scan(r, j, cuda):
 
 
 def _check_refused_launch(cuda):
-    """A row too wide for shared memory, or an SSD chunk too long, is
-    refused at launch, and the wrapper raises instead of returning
-    unwritten outputs."""
+    """A row too wide for shared memory, or an SSD chunk too long (the
+    kernel takes chunks up to 256), is refused at launch, and the
+    wrapper raises instead of returning unwritten outputs."""
     rem = torch.ones((2, 30000), device=cuda)
     one = torch.ones(2, device=cuda)
     with pytest.raises(RuntimeError, match="event_scan"):
@@ -101,11 +103,21 @@ def _close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
-def _check_ssd(b, s, h, p, n, chunk, dtype, cuda):
+def _check_ssd(b, s, h, p, n, chunk, dtype, cuda, draws="test"):
+    """dt and a drawn as tests/test_kernels.py draws them, or ("mamba2")
+    as Mamba-2 initialises them: dt log-uniform in [1e-3, 1e-1], A =
+    -U[1, 16], so slow heads carry keys far below the diagonal and the
+    state across chunks."""
     g = torch.Generator().manual_seed(s + h)
     x = torch.randn((b, s, h, p), generator=g).to(dtype)
-    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g))
-    a = -torch.exp(torch.randn(h, generator=g) * 0.3)
+    if draws == "test":
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h),
+                                                      generator=g))
+        a = -torch.exp(torch.randn(h, generator=g) * 0.3)
+    else:
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(torch.rand((b, s, h), generator=g) * (hi - lo) + lo)
+        a = -(1.0 + 15.0 * torch.rand(h, generator=g))
     bm, cm = torch.randn((2, b, s, n), generator=g)
     args = [t.to(cuda) for t in (x, dt, a, bm, cm)]
     tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
@@ -224,6 +236,14 @@ def test_kernels_match_plain_on_the_card(cuda):
         for shape in ((1, 32, 4, 8, 16, 8), (2, 64, 8, 16, 32, 16),
                       (1, 512, 2, 64, 128, 256), (1, 100, 3, 24, 40, 50)):
             _check_ssd(*shape, dtype, cuda)
+        # Mamba-2's draws: two chunks at mamba2-130m's widths; B 2 with
+        # H 5 (not a multiple of either pass's head group), ragged P, N
+        # and a chunk of 100 (a full key tile below a partial one); P 6
+        # and N 10, whose rows are not whole 16-byte chunks (staged
+        # without cp.async)
+        for shape in ((2, 512, 24, 64, 128, 256), (2, 300, 5, 24, 40, 100),
+                      (1, 64, 3, 6, 10, 32)):
+            _check_ssd(*shape, dtype, cuda, draws="mamba2")
         for shape in ((1, 2, 2, 64, 16, True, 0, 0.0),
                       (2, 4, 1, 128, 32, True, 32, 0.0),
                       (1, 8, 8, 256, 64, True, 0, 50.0),
