@@ -12,8 +12,15 @@ Phases (any failure exits non-zero before the result line):
                or an SSD pass that multiplies matrices (states, output)
                fails if it spills or has no tensor-core instruction;
 3. kernels  -- each kernel against its plain PyTorch version on the card,
-               bitwise, at the engine's shapes (link_scan with and
-               without the trunk cap);
+               bitwise, at the engine's shapes: event_scan's fresh rank
+               (a sort) and injected rank, also on tables of many equal
+               remaining values with an all-invalid and a dead row; its
+               checked form (the engine's: table gathered from the slot
+               map, carried rank checked on the device) with the carry
+               kept, the carry's flag off, and a carry that fails in one
+               row only (every row reseeds), each with its reseed count;
+               the one-launch frontier; link_scan with and without the
+               trunk cap;
 4. main     -- ``simulation.run_experiment`` on the card for the 20u_100j
                (paper section 5 scale) and 4u_512j cells, held bitwise
                against the JAX reference in tests/data/port_ref_main.json,
@@ -46,8 +53,9 @@ Phases (any failure exits non-zero before the result line):
                that call's time;
 7. profile  -- the first WINDOW supersteps of 20u_100j and of
                20u_100j_net under the profiler: device busy time, idle
-               share, top kernels.  Last: the profiler drops records
-               now and then, and more after a session this large.
+               share, kernel launches and host syncs per superstep, top
+               kernels.  Last: the profiler drops records now and then,
+               and more after a profile this large.
 
 Prints a ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.  Imports no JAX.
@@ -112,6 +120,8 @@ API = ("event_scan_slab", "ssd_scan", "flash_attention")
 # the kernels one call of each wrapper launches (a name matches every
 # kernel whose name contains it)
 KERNEL_NAME = {"event_scan": ("event_scan_kernel",),
+               "event_scan checked": ("event_scan_check_kernel",
+                                      "event_scan_kernel"),
                "event_frontier": ("event_frontier_kernel",),
                "link_scan": ("link_scan_kernel",),
                "event_scan_slab": ("event_scan_slab_kernel",),
@@ -279,6 +289,72 @@ def scan_inputs(r, j, gen, dev):
                       ).to(torch.float32)
     ok = (torch.rand(r, generator=gen) > 0.1).to(torch.float32)
     return tuple(x.to(dev) for x in (rem, tie, mips, npe, pol, blk, ok))
+
+
+def tie_heavy(rem, tie, ok):
+    """The same table with many equal remaining values (whole multiples
+    of 50), row 0 all invalid and row 1 dead."""
+    rem = torch.floor(rem / 50.0) * 50.0
+    rem[0] = 0.0
+    tie = torch.where(rem > 0, tie, float(2 ** 30))
+    ok = ok.clone()
+    ok[1] = 0.0
+    return rem, tie, ok
+
+
+def checked_inputs(r, j, gen, dev):
+    """The checked scan's inputs at [r, j] (r >= 4): a slot map over
+    N = 2 r j gridlets (~70% of slots occupied, each by its own
+    gridlet), remaining values on a 10 MI grid (many equal; a zero is
+    clamped to 1e-30 by the gather), time-shared rows with 1-4 PEs (so
+    that ranks matter), row 1 space-shared, row 2 dead, row 3 empty.
+    Returns (inputs, carries): "kept" is the fresh rank with each row's
+    MaxShare side reversed (another rank, the same partition); "one
+    row" is the same but for row 0, whose boundary pair (ranks msc - 1
+    and msc) is swapped, so row 0 alone fails the check."""
+    from repro_torch.kernels import event_scan as ek
+    n = 2 * r * j
+    ids = torch.randperm(n, generator=gen)[:r * j].reshape(r, j)
+    rg = torch.where(torch.rand((r, j), generator=gen) < 0.7, ids,
+                     -1).to(torch.int32)
+    rg[3] = -1
+    occ0 = torch.nonzero(rg[0] >= 0)[:, 0]
+    if len(occ0) % 3 == 0:       # row 0: 3 PEs, some of them shared
+        rg[0, occ0[0]] = -1
+    remaining = torch.floor(torch.rand(n, generator=gen) * 20.0) * 10.0
+    mips = torch.randint(100, 600, (r,), generator=gen).to(torch.float32)
+    npe = torch.randint(1, 5, (r,), generator=gen).to(torch.float32)
+    npe[0] = 3.0
+    pol = torch.zeros(r)
+    pol[1] = 1.0
+    ok = torch.ones(r)
+    ok[2] = 0.0
+    args = tuple(x.to(dev) for x in (rg, remaining, mips, npe, pol,
+                                     torch.zeros(r), ok))
+    fresh = ek.event_scan_checked_ref(
+        *args, torch.zeros((r, j), device=dev),
+        torch.tensor(False, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev))[4]
+    rem, _ = ek._gather_table(args[0], args[1])
+    npe_e, valid, g = ek._row_masks(rem, args[3][:, None], args[4][:, None],
+                                    args[5][:, None], args[6][:, None])
+    m = torch.clamp_min(npe_e, 1.0)
+    k = torch.floor(g / m)
+    msc = (npe_e - (g - k * m)) * k
+    kept = torch.where(valid & (fresh < msc),
+                       torch.minimum(msc, g) - 1.0 - fresh, fresh)
+    ms = float(msc[0, 0])
+    assert 0 < ms < float(g[0, 0]), "row 0 must have both share sides"
+    one = kept.clone()
+    one[0] = torch.where(valid[0] & (fresh[0] == ms - 1), ms,
+                         torch.where(valid[0] & (fresh[0] == ms), ms - 1,
+                                     fresh[0]))
+    return args, {"kept": kept, "one row": one}
+
+
+CHECKED_CASES = (("carry kept", "kept", True), ("carry flag off", "kept",
+                                                False),
+                 ("one row fails", "one row", True))
 
 
 def link_inputs(l, t, gen, dev):
@@ -658,38 +734,80 @@ def main():
     phase("kernels against their plain versions (bitwise)")
     gen = torch.Generator().manual_seed(0)
     errs = {"event_scan": 0.0, "event_frontier": 0.0, "link_scan": 0.0}
+    names = ("rate", "t_min", "argmin", "occ", "rank")
     for r, j in SCAN_SHAPES:
         rem, tie, mips, npe, pol, blk, ok = scan_inputs(r, j, gen, dev)
-        kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
-                  with_rank=True)
-        want = ek.event_scan_ref(rem, mips, npe, **kw)
-        got = ek.event_scan_cuda(rem, mips, npe, **kw)
-        rank_in = want[4]
-        want_i = ek.event_scan_ref(rem, mips, npe, rank=rank_in, **kw)
-        got_i = ek.event_scan_cuda(rem, mips, npe, rank=rank_in, **kw)
-        torch.cuda.synchronize()
-        for form, w, gt in (("fresh", want, got), ("injected", want_i,
-                                                   got_i)):
-            names = ("rate", "t_min", "argmin", "occ", "rank")
-            same = [bits_equal(a, b) for a, b in zip(w, gt)]
+        hrem, htie, hok = tie_heavy(rem, tie, ok)
+        for table, (rem, tie, ok) in (("", (rem, tie, ok)),
+                                      (" ties", (hrem, htie, hok))):
+            kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
+                      with_rank=True)
+            want = ek.event_scan_ref(rem, mips, npe, **kw)
+            got = ek.event_scan_cuda(rem, mips, npe, **kw)
+            rank_in = want[4]
+            want_i = ek.event_scan_ref(rem, mips, npe, rank=rank_in, **kw)
+            got_i = ek.event_scan_cuda(rem, mips, npe, rank=rank_in, **kw)
+            torch.cuda.synchronize()
+            for form, w, gt in (("fresh", want, got),
+                                ("injected", want_i, got_i)):
+                form += table
+                same = [bits_equal(a, b) for a, b in zip(w, gt)]
+                errs["event_scan"] = max([errs["event_scan"]] + [
+                    abs_err(a, b) for a, b in zip(w, gt)])
+                print(f"event_scan {form:14s} [{r},{j}]: " + " ".join(
+                    f"{n}={'ok' if s else 'DIFF'}"
+                    for n, s in zip(names, same)), flush=True)
+                if not all(same):
+                    failures.append(f"event_scan {form} [{r},{j}]")
+        # the checked form, fresh outputs and then the engine's reused
+        # ones (two calls of each case: both sets of the scratch)
+        args, carries = checked_inputs(r, j, gen, dev)
+        scratch = ek.Scratch()
+        for case, carry, flag in CHECKED_CASES:
+            flag = torch.tensor(flag, device=dev)
+            n_want, n_got, n_scr = (torch.zeros((), dtype=torch.int32,
+                                                device=dev) for _ in range(3))
+            want = ek.event_scan_checked_ref(*args, carries[carry], flag,
+                                             n_want)
+            got = ek.event_scan_checked_cuda(*args, carries[carry], flag,
+                                             n_got)
+            same = [bits_equal(a, b) for a, b in zip(want, got)]
+            for _ in range(2):
+                ek.event_scan_checked_ref(*args, carries[carry], flag, n_want)
+                scr = ek.event_scan_checked_cuda(*args, carries[carry], flag,
+                                                 n_scr, scratch=scratch)
+                same += [bits_equal(a, b) for a, b in zip(want, scr)]
+            torch.cuda.synchronize()
+            reseeds = (int(n_want), int(n_got), int(n_scr))
+            same.append(reseeds == (3 * reseeds[1], reseeds[1],
+                                    2 * reseeds[1]))
             errs["event_scan"] = max([errs["event_scan"]] + [
-                abs_err(a, b) for a, b in zip(w, gt)])
-            print(f"event_scan {form:8s} [{r},{j}]: " + " ".join(
-                f"{n}={'ok' if s else 'DIFF'}" for n, s in zip(names, same)),
-                flush=True)
-            if not all(same):
-                failures.append(f"event_scan {form} [{r},{j}]")
+                abs_err(a, b) for a, b in zip(want, got)])
+            used = "carry" if bits_equal(want[4], carries[carry]) else "fresh"
+            print(f"event_scan checked [{r},{j}] {case}: rank {used}, "
+                  f"reseeds {reseeds[1]}: " + " ".join(
+                      f"{n}={'ok' if s else 'DIFF'}"
+                      for n, s in zip(names, same)) +
+                  f" (scratch {'ok' if all(same[5:]) else 'DIFF'})",
+                  flush=True)
+            if not all(same) or (used == "carry") != (case == "carry kept"):
+                failures.append(f"event_scan checked [{r},{j}] {case}")
     layouts = {"engine 20u_100j": engine_layout(20, 100, 11, 16),
                "engine 4u_512j": engine_layout(4, 512, 2, 8),
                "random": tuple(int(x) for x in torch.randint(
                    0, 300, (9,), generator=gen))}
+    scratch = ek.Scratch()
     for name, sizes in layouts.items():
         cand, cuts = frontier_inputs(sizes, gen, dev)
         for use_cuts in (None, cuts):
             want = ek.event_frontier_ref(cand, sizes, use_cuts)
             got = ek.event_frontier_cuda(cand, sizes, use_cuts)
+            # the engine's call: candidates unchecked, reused outputs
+            got_s = ((ek.event_frontier_cuda(cand, sizes, scratch=scratch),)
+                     if use_cuts is None else ())
             torch.cuda.synchronize()
-            same = all(bits_equal(a, b) for a, b in zip(want, got))
+            same = all(bits_equal(a, b) for out in (got,) + got_s
+                       for a, b in zip(want, out))
             errs["event_frontier"] = max([errs["event_frontier"]] + [
                 abs_err(a, b) for a, b in zip(want, got)])
             print(f"event_frontier {name} (C={sum(sizes)}, "
@@ -739,10 +857,12 @@ def main():
                   f"host syncs, {counts['link_scan'] / net_steps:.2f} "
                   f"link_scan launches", flush=True)
         bad = check_cell(name, c, res)
+        steps = int(res.n_steps) + int(res.n_spec)
         print(f"{name}: wall {wall:.3f} s, supersteps {int(res.n_steps)}, "
               f"speculative {int(res.n_spec)}, reseeds "
               f"{int(res.n_reseeds)}, scans {int(res.n_scans)}, events "
-              f"{int(res.n_events)}, host syncs {res.host_syncs}, "
+              f"{int(res.n_events)}, host syncs {res.host_syncs} "
+              f"({res.host_syncs / steps:.2f} per superstep), "
               f"launches {counts}, plain calls {plain}, done "
               f"{int(res.n_done.sum())}, spent {float(res.spent.sum())}",
               flush=True)
@@ -783,6 +903,19 @@ def main():
     # The function's own work, not the kernel's: a fresh rank needs a
     # sort of each row (J log2 J compares), not the J^2 pairwise count.
     sort_ops = r * j * int(np.ceil(np.log2(max(j, 2))))
+    # the checked form as the engine calls it, with the carry kept (the
+    # main path's common case): slot map, carry, the occupied slots'
+    # remaining and the row vectors read, the flag and the counter read,
+    # rate and rank and the row outputs written, the counter written;
+    # the check's ~6 operations a slot and the scan's ~12
+    cargs, carries = checked_inputs(r, j, gen, dev)
+    ckept, cflag = carries["kept"], torch.tensor(True, device=dev)
+    ccount, pcount = (torch.zeros((), dtype=torch.int32, device=dev)
+                      for _ in range(2))
+    cscratch = ek.Scratch()
+    occupied = int((cargs[0] >= 0).sum())
+    checked_bytes = ((2 * r * j + occupied + 5 * r + 1) * f4 + 1 +
+                     (2 * r * j + 3 * r + 1) * f4)
     rows = []
     for name, form, fn, plain_fn, nbytes, n_ops in (
             ("event_scan", "fresh",
@@ -793,11 +926,16 @@ def main():
              lambda: ek.event_scan_cuda(rem, mips, npe, rank=rank_in, **kw),
              lambda: ek.event_scan_ref(rem, mips, npe, rank=rank_in, **kw),
              scan_bytes + r * j * f4, 12 * r * j),
+            ("event_scan", "checked",
+             lambda: ek.event_scan_checked_cuda(*cargs, ckept, cflag, ccount,
+                                                scratch=cscratch),
+             lambda: ek.event_scan_checked_ref(*cargs, ckept, cflag, pcount),
+             checked_bytes, 18 * r * j),
             ("event_frontier", "engine layout",
-             lambda: ek.event_frontier_cuda(cand, sizes),
+             lambda: ek.event_frontier_cuda(cand, sizes, scratch=cscratch),
              lambda: ek.event_frontier_ref(cand, sizes),
-             (sum(sizes) + len(sizes) + 1) * f4 + 3 * len(sizes) * f4,
-             3 * sum(sizes)),
+             (sum(sizes) + len(sizes) + 1) * f4 + 2 * f4 +
+             len(sizes) * (1 + 2 * f4), 3 * sum(sizes)),
             ("link_scan", "trunk cap",
              lambda: ek.link_scan_cuda(lrem, lbaud, bg=lbg, tie=ltie,
                                        cap=lcap),
@@ -809,10 +947,14 @@ def main():
              lambda: ek.link_scan_ref(lrem, lbaud, bg=lbg, tie=ltie),
              link_bytes, link_ops)):
         call_ms = time_ms(fn)
-        ms, _ = device_ms(fn, kernels=KERNEL_NAME[name])
+        kernel_names = KERNEL_NAME.get(f"{name} {form}", KERNEL_NAME[name])
+        ms, per = device_ms(fn, kernels=kernel_names)
         if ms is None:
             failures.append(f"{name} {form}: the profiler recorded no "
-                            f"device time for {name}_kernel")
+                            f"device time for {kernel_names}")
+        if len(per) > 1:
+            print(f"{name} {form}: {len(per)} launches per call, device ms "
+                  f"per call by kernel {per}", flush=True)
         plain_ms = time_ms(plain_fn, reps=50)
         plain_dev, _ = device_ms(plain_fn)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -938,7 +1080,8 @@ def main():
         print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
               f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
               f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
-              f"superstep), host syncs {res.host_syncs}", flush=True)
+              f"superstep), host syncs {res.host_syncs} "
+              f"({res.host_syncs / steps:.2f} per superstep)", flush=True)
         for k, (n, us) in sorted(by_name.items(),
                                  key=lambda x: -x[1][1])[:8]:
             print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms",

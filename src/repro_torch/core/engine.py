@@ -6,10 +6,13 @@ State layout follows the reference: gridlet state in the flat
 ``GridletBatch`` ([N]); every executing gridlet also holds one column of
 the ``[R_pad, J]`` job-slot table (``SimState.slot`` / ``row_gridlet``).
 Each superstep gathers ``remaining`` into the table and runs the Fig 8
-share + forecast math in one ``kernels.ops.event_scan`` call; one
-``kernels.ops.event_frontier`` pass over every source's candidate
-instants picks the earliest instant t* (and, for the batched path, the
-speculation horizon).  All jobs advance analytically to t*, then every
+share + forecast math in one checked ``event_scan`` call
+(``kernels.event_scan.event_scan_checked_*``: the gather, the check of
+the carried rank and the reseed count run on the device); one
+``event_frontier`` pass over every source's candidate instants picks the
+earliest instant t* (and, for the batched path, the speculation
+horizon).  On the card both write into the run's reused outputs
+(``HostCounts.scratch``).  All jobs advance analytically to t*, then every
 source due at t* applies, in the priority order of ``des.PRIORITY_ORDER``
 except that BROKER applies before ARRIVAL.
 
@@ -150,15 +153,19 @@ def default_params(deadline, budget, opt, n_users: int,
 
 @dataclasses.dataclass
 class HostCounts:
-    """Host-side loop counters: the supersteps the reference counts in
-    its loop carry (committing ``n_steps``, speculative ``n_spec``, Fig 8
-    scans ``n_scans`` and the ones that re-sorted, ``n_reseeds``), plus
-    ``syncs``, the device-to-host reads the host loop made."""
+    """Host-side loop state: the supersteps the reference counts in its
+    loop carry (committing ``n_steps``, speculative ``n_spec``, Fig 8
+    scans ``n_scans``), ``syncs``, the device-to-host reads the host
+    loop made, and, on the device, ``n_reseeds`` (i32[], the scans that
+    re-sorted: the checked scan adds to it without a read) and the
+    ``scratch`` its kernels write their outputs to."""
+    n_reseeds: torch.Tensor
     n_steps: int = 0
     n_spec: int = 0
     n_scans: int = 0
-    n_reseeds: int = 0
     syncs: int = 0
+    scratch: _event_kernels.Scratch = dataclasses.field(
+        default_factory=_event_kernels.Scratch)
 
     def read(self, pred) -> bool:
         """Read one device predicate back to the host."""
@@ -281,35 +288,31 @@ def _reserved_pes(params, t, n_resources):
                        device=params.deadline.device)
 
 
-def _table_inputs(state, fleet, params, n_resources, r_pad):
-    """Gather the [R_pad, J] job-slot table and the per-row kernel
-    inputs.  An occupied slot whose remaining underflowed to exactly 0
-    is clamped to 1e-30 (0 is the empty-slot sentinel)."""
-    g = state.g
-    rg = state.row_gridlet
-    occupied = rg >= 0
-    gid = torch.clamp(rg.to(torch.int64), 0, g.n - 1)
-    rem_rj = torch.where(occupied,
-                         torch.clamp_min(g.remaining[gid], 1e-30), 0.0)
-    tie_rj = torch.where(occupied, rg, 2 ** 30).to(torch.float32)
+def _row_inputs(state, fleet, params, n_resources, r_pad):
+    """The per-row scan inputs, f32 [R_pad]: effective MIPS, PEs,
+    policy, reserved PEs and row up (padded rows: 1 MIPS, 1 PE,
+    time-shared, none reserved, up).  The table itself is gathered from
+    ``row_gridlet`` inside the scan."""
     pad = r_pad - n_resources
+    f32 = torch.float32
     eff = _pad(calendar.effective_mips(fleet, state.t), pad, 1.0)
-    npe = _pad(fleet.num_pe, pad, 1)
-    pol = _pad(fleet.policy, pad, 0)
-    blocked = _pad(_reserved_pes(params, state.t, n_resources).to(
-        torch.float32), pad, 0.0)
-    row_ok = _pad(state.res_up, pad, True).to(torch.float32)
-    return rem_rj, tie_rj, eff, npe, pol, blocked, row_ok
+    npe = _pad(fleet.num_pe, pad, 1).to(f32)
+    pol = _pad(fleet.policy, pad, 0).to(f32)
+    blocked = _pad(_reserved_pes(params, state.t, n_resources).to(f32),
+                   pad, 0.0)
+    row_ok = _pad(state.res_up, pad, True).to(f32)
+    return eff, npe, pol, blocked, row_ok
 
 
-def _scan_events(table, rank=None):
-    """Resource-major Fig 8 scan of ``_table_inputs``' tuple through
-    kernels.ops.event_scan: (rate [R_pad, J], t_min [R_pad], argmin col
-    [R_pad], occupancy [R_pad], rank [R_pad, J])."""
-    rem_rj, tie_rj, eff, npe, pol, blocked, row_ok = table
-    return kernel_ops.event_scan(rem_rj, eff, npe, tie=tie_rj, policy=pol,
-                                 pe_blocked=blocked, row_ok=row_ok,
-                                 rank=rank, with_rank=True)
+def _frontier(state, cands):
+    """The event frontier over every source's candidates: the kernel on
+    the card (into the run's scratch), the plain version on the CPU."""
+    cand = torch.cat(cands)
+    sizes = tuple(c.shape[0] for c in cands)
+    if cand.device.type == "cuda":
+        return _event_kernels.event_frontier_cuda(
+            cand, sizes, scratch=state.host.scratch)
+    return _event_kernels.event_frontier_ref(cand, sizes)
 
 
 # ----------------------------------------------------------------------
@@ -928,42 +931,22 @@ def _empty_slab(state):
             torch.zeros((state.g.n,), dtype=torch.int32, device=dev), false)
 
 
-def _partition_ok(rem, tie, valid, rank, npe_e, g, pol):
-    """True iff the carried rank still yields the exact Fig 8 rate
-    assignment the fresh lexsort rank would: the carried MaxShare side's
-    lexicographic max lies strictly below the MinShare side's min."""
-    m = torch.clamp_min(npe_e, 1.0)
-    k = torch.floor(g / m)
-    extra = g - k * m
-    msc = (npe_e - extra) * k
-    left = valid & (rank < msc)
-    right = valid & (rank >= msc)
-    rem_lo = torch.where(left, rem, -_BIG).max(dim=1, keepdim=True).values
-    rem_hi = torch.where(right, rem, _BIG).min(dim=1, keepdim=True).values
-    tie_lo = torch.where(left & (rem == rem_lo), tie, -_BIG).max(
-        dim=1, keepdim=True).values
-    tie_hi = torch.where(right & (rem == rem_hi), tie, _BIG).min(
-        dim=1, keepdim=True).values
-    row_ok = (rem_lo < rem_hi) | ((rem_lo == rem_hi) & (tie_lo < tie_hi))
-    rank_free = (pol > 0.5) | (g <= npe_e)
-    return (rank_free | row_ok).all()
-
-
 def _checked_scan(state, fleet, params, n_resources, r_pad, slab):
-    """The Fig 8 scan, fed the carried rank when it still describes the
-    table (the kernel's injected-rank form, no sort), else one fresh
-    rank.  Returns (scan outputs, reseeded)."""
-    rank_carry, slab_ok = slab[0], slab[1]
-    table = _table_inputs(state, fleet, params, n_resources, r_pad)
-    rem, tie, _, npe, pol, blk, row_ok = table
-    pol_f = pol.to(torch.float32)[:, None]
-    npe_e, valid, g = _event_kernels._row_masks(
-        rem, npe.to(torch.float32)[:, None], pol_f, blk[:, None],
-        row_ok[:, None])
-    use = state.host.read(slab_ok & _partition_ok(rem, tie, valid,
-                                                  rank_carry, npe_e, g,
-                                                  pol_f))
-    return _scan_events(table, rank_carry if use else None), not use
+    """The Fig 8 scan in the reference's select-free form: every row
+    takes the carried rank when it still describes the table (the
+    slab's flag and ``_partition_ok``), else a fresh rank, and
+    ``host.n_reseeds`` counts the fresh ones -- the gather, the check,
+    the choice and the count all on the device, with no host read (the
+    kernel's checked form on the card).  Returns (rate [R_pad, J], t_min
+    [R_pad], argmin col [R_pad], occupancy [R_pad], rank [R_pad, J])."""
+    host = state.host
+    args = (state.row_gridlet, state.g.remaining,
+            *_row_inputs(state, fleet, params, n_resources, r_pad),
+            slab[0], slab[1], host.n_reseeds)
+    if state.t.device.type == "cuda":
+        return _event_kernels.event_scan_checked_cuda(*args,
+                                                      scratch=host.scratch)
+    return _event_kernels.event_scan_checked_ref(*args)
 
 
 def _slab_after(state, ctx, scan, fleet, n_resources, r_pad):
@@ -988,16 +971,13 @@ def _step_commit(state, fleet, params, n_users, slab):
     host = state.host
 
     ctx = {}
-    ctx["scan"], reseeded = _checked_scan(state, fleet, params,
-                                          n_resources, r_pad, slab)
+    ctx["scan"] = _checked_scan(state, fleet, params, n_resources, r_pad,
+                                slab)
     ctx["qcarry"] = (slab[2], slab[3])
     host.n_scans += 1
-    host.n_reseeds += int(reseeded)
     sources = _make_sources(fleet, params, n_users, ctx)
-    cands = [s.candidates(state) for s in sources]
-    sizes = tuple(c.shape[0] for c in cands)
-    t_star, fired, _, _, _ = kernel_ops.event_frontier(torch.cat(cands),
-                                                       sizes)
+    t_star, fired, _, _, _ = _frontier(
+        state, [s.candidates(state) for s in sources])
     any_event = torch.isfinite(t_star)
     t_next = torch.where(any_event, t_star, state.t)
 
@@ -1053,11 +1033,10 @@ def _speculative_step(state, fleet, params, n_users, t_safe, slab,
     comp, ret = by_kind[des.K_COMPLETION], by_kind[des.K_RETURN]
     net = _net_on(state)
 
-    ctx["scan"], reseeded = _checked_scan(state, fleet, params,
-                                          n_resources, r_pad, slab)
+    ctx["scan"] = _checked_scan(state, fleet, params, n_resources, r_pad,
+                                slab)
     ctx["qcarry"] = (slab[2], slab[3])
     host.n_scans += 1
-    host.n_reseeds += int(reseeded)
     if net:
         ctx["net_scan"] = _link_scan(state, params, n_resources, r_pad)
 
@@ -1105,9 +1084,8 @@ def _speculation_horizon(state, fleet, params, n_users):
     speculative COMPLETION/RETURN batching, from every source's
     ``horizon_candidates`` through the frontier kernel."""
     sources = _make_sources(fleet, params, n_users, {})
-    cands = [s.horizon_candidates(state) for s in sources]
-    sizes = tuple(c.shape[0] for c in cands)
-    return kernel_ops.event_frontier(torch.cat(cands), sizes)[3]
+    return _frontier(state, [s.horizon_candidates(state)
+                             for s in sources])[3]
 
 
 def step_batched(state, fleet, params, n_users: int, batch: int,
@@ -1190,7 +1168,7 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
         trace_t=full((TRACE_LEN,), INF),
         trace_kind=full((TRACE_LEN,), -1, torch.int32),
         trace_who=full((TRACE_LEN,), -1, torch.int32),
-        host=HostCounts(),
+        host=HostCounts(n_reseeds=zero_i.clone()),
         width=width,
     )
 
@@ -1213,7 +1191,7 @@ def _finalize(state) -> SimResult:
                      n_steps=i32(host.n_steps), overflow=state.overflow,
                      n_failed=state.n_failed,
                      n_resubmits=state.n_resubmits, downtime=downtime,
-                     n_spec=i32(host.n_spec), n_reseeds=i32(host.n_reseeds),
+                     n_spec=i32(host.n_spec), n_reseeds=host.n_reseeds,
                      n_scans=i32(host.n_scans), host_syncs=host.syncs)
 
 

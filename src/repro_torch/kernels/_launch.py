@@ -32,7 +32,8 @@ F = ctypes.c_float
 # ssd_scan_blocks, which takes the array it writes the block counts to)
 _SIGNATURES = {
     "event_scan_launch": [P] * 13 + [I, I, P],
-    "event_frontier_launch": [P, P, P, I, P, P, P, P],
+    "event_scan_checked_launch": [P, P, I] + [P] * 14 + [I, I, P],
+    "event_frontier_launch": [P, P, P, I, I] + [P] * 6,
     "link_scan_launch": [P] * 9 + [I, I, P],
     "event_scan_slab_launch": [P] * 9 + [I, I, I, I, P],
     "ssd_scan_launch": [P] * 8 + [I] * 7 + [P],

@@ -11,16 +11,45 @@
 //   What bounds it here: launch latency.  At the engine's shapes
 //   ([16, 32] .. [16, 2000]) it moves 4-16 bytes per slot (82 KB read and
 //   82 KB written at [16, 640]), microseconds of HBM time, far below the
-//   cost of one launch; the fresh rank adds O(J^2) compares per row out
-//   of shared memory.  Design: one block per row, so no cross-block
-//   reduction is needed; the row's keys, tie keys and forecasts live in
-//   shared memory (12 bytes per slot, 24 KB at J = 2000); the rank is the
-//   pairwise count of lexicographically smaller (key, tie, column)
-//   triples, each thread holding 8 of its slots in registers while the
-//   block streams the row once per 8 slots.  That is the exact inverse of
-//   the stable lexsort permutation, so the rank output matches the plain
-//   version bitwise on every slot.  None of the TPU layout survives: no
-//   128-lane padding, no pairwise/bitonic switch, no [8, J, J] cube.
+//   cost of one launch; the fresh rank adds a sort of each row out of
+//   shared memory.  Design: one block per row, so no cross-block
+//   reduction is needed; the row's keys and tie keys live in shared
+//   memory.  The fresh rank is a bitonic sort of the row's column
+//   indices (16-bit, padded to the next power of two n) under the
+//   lexicographic order of (key, tie, column) -- log2(n) (log2(n) + 1) / 2
+//   compare-exchange stages, one barrier each -- and the sorted position
+//   of a column is its rank: the exact inverse of the stable lexsort
+//   permutation, so the rank output matches the plain version bitwise on
+//   every slot, invalid ones included (they key as (BIG, BIG, column) and
+//   sort after every valid slot, by column).  The comparator reads the
+//   f32 keys themselves, so no packing argument is needed, and -0 == +0
+//   as in torch.sort; the sort moves only the 2-byte indices, so shared
+//   memory is 8 J + 2 n <= 12 J bytes, what the old pairwise form used,
+//   and every J that form took still fits (J <= 19,349).  The rates are
+//   then written in sorted order (position p is the rank of column
+//   idx[p]); the argmin passes re-derive t = rem / rate from the rates
+//   just written, with the same instructions, so they see the same bits.
+//   None of the TPU layout survives: no 128-lane padding, no
+//   pairwise/bitonic switch, no [8, J, J] cube.
+//
+// event_scan, checked form -- replaces, as one launcher call, what the
+//   reference's engine wraps around the kernel in `_checked_scan(
+//   select_free=True)` (src/repro/core/engine.py: the `_table_inputs`
+//   gather, `_partition_ok`, `where(use, carry, fresh lexsort)` into the
+//   injected-rank scan, `n_reseeds += ~use`).  Two kernels on the stream:
+//   event_scan_check_kernel gathers each row of the table from the slot
+//   map (row_gridlet) and the gridlets' remaining, and writes whether the
+//   carried rank still splits that row's MaxShare / MinShare sets as the
+//   value order does (one flag per row); event_scan_kernel gathers the
+//   row again, reads every row's flag and the carry's own flag, and
+//   scans with the carried rank if all hold, else with a fresh sort of
+//   every row -- the choice is uniform over the grid, as in the
+//   reference -- and its block 0 adds the reseed to a device counter.
+//   Two launches rather than one cooperative launch with a grid barrier:
+//   the flags must cover every row before any row scans, the second
+//   launch is made inside the same ctypes call (no Python between them),
+//   and a grid barrier would need a co-residency contract the plain
+//   launch does not.  No host read: the engine's scan makes no sync.
 //
 // link_scan -- replaces the Pallas kernel `link_scan`
 //   (event_scan.py: `_link_kernel` and `_link_kernel_cap` over
@@ -42,12 +71,24 @@
 //
 // event_frontier -- replaces the Pallas kernel `event_frontier`
 //   (event_scan.py: `_frontier_kernel`, pl.pallas_call at :1009).  One
-//   block: pass 1 takes each source segment's minimum candidate and
-//   minimum horizon-cutting candidate, the running minimum of those is
-//   t*, pass 2 counts each segment's candidates due at t*.  Bound: launch
-//   latency (a few KB of candidates).  Design: segments are walked in
-//   order with block-wide reductions, segment offsets come in as an
-//   int32 array instead of the TPU's [S, C] membership matrix.
+//   block writes all five outputs: each source segment's minimum
+//   candidate and minimum horizon-cutting candidate, t* (the least
+//   minimum), which sources fire at t*, each segment's count of
+//   candidates due at t*, and t_safe.  Bound: launch latency (a few KB of
+//   candidates).  Design: every thread strides over all C candidates,
+//   eight loads in flight at a time, keeping a running min, safe min and
+//   due count for the segment its current candidate lies in (segment
+//   offsets in shared memory, not the TPU's [S, C] membership matrix),
+//   and folds them into shared memory when it moves to a later segment:
+//   mins through atomicMin on an order-preserving integer image of the
+//   f32 value, counts through atomicAdd.  So every segment reduces at
+//   once, not one source after another.  Pass 1 (mins), barrier, every
+//   thread takes t* from the S minima, pass 2 (counts), barrier, one
+//   thread a segment writes out.  Min and count are exact in any order,
+//   so the outputs match the plain version bitwise.  (Grouping a warp's
+//   lanes by segment with __match_any_sync and reducing them with
+//   __reduce_*_sync before the atomics measured slower on the card than
+//   that.)
 //
 // event_scan_slab -- replaces the Pallas kernel `event_scan_slab`
 //   (event_scan.py: `_slab_kernel` over `_slab_waves` and
@@ -56,8 +97,9 @@
 //   the row's next k completions under uninterrupted Fig 8 dynamics.
 //   Bound: bytes (8 bytes a slot read, 8 bytes a wave written: ~82 KB at
 //   [16, 640], ~25 ns of HBM time), so in practice launch latency and
-//   the O(J^2) rank.  Design: one block per row reusing event_scan's
-//   shared-memory rank (`row_keys`, `pairwise_rank`); only the k heads
+//   the O(J^2) rank.  Design: one block per row with event_scan's
+//   shared-memory keys (`row_keys`) and a pairwise rank (`pairwise_rank`:
+//   the count of lexicographically smaller slots); only the k heads
 //   (rank < k) matter afterwards, so their remaining and columns are
 //   gathered into shared memory and the waves run on k values, not on
 //   the row: assoc=0 is the sequential recurrence on one thread;
@@ -88,7 +130,8 @@ using repro_torch::kDefaultSmem;
 constexpr float kBig = 3.0e38f;
 constexpr int kScanThreads = 256;
 constexpr int kPerThread = 8;       // rank slots held in registers
-constexpr int kFrontierThreads = 256;
+constexpr int kFrontierThreads = 512;
+constexpr int kFrontierLoads = 8;   // candidates a thread loads at once
 constexpr int kLinkThreads = 256;
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -100,6 +143,12 @@ __device__ __forceinline__ float warp_min(float v) {
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1)
     v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -120,6 +169,23 @@ __device__ float block_min(float v, float* red) {
   if (warp == 0) {
     float w = lane < n_warps ? red[lane] : INFINITY;
     w = warp_min(w);
+    if (lane == 0) red[0] = w;
+  }
+  __syncthreads();
+  const float out = red[0];
+  __syncthreads();
+  return out;
+}
+
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  v = warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < n_warps ? red[lane] : -INFINITY;
+    w = warp_max(w);
     if (lane == 0) red[0] = w;
   }
   __syncthreads();
@@ -195,18 +261,53 @@ struct RowMask {
   }
 };
 
+// Where a row's slots come from: the [R, J] table itself (rem, tie), or
+// -- the engine's checked form -- the slot map rg (gridlet index, -1 =
+// empty) and the gridlets' remaining, gathered as `_table_inputs` does:
+// an occupied slot holds its gridlet's remaining clamped to 1e-30 (0
+// marks an empty slot) and the gridlet index as its tie key; an empty
+// slot holds 0 and 2^30.
+struct TableIn {
+  const float* rem;
+  const float* tie;
+  const int* rg;            // non-null: gather from the slot map
+  const float* g_rem;
+  int n_gridlets;
+  __device__ void slot(size_t at, float* x, float* t) const {
+    if (rg == nullptr) {
+      *x = rem[at];
+      *t = tie[at];
+      return;
+    }
+    const int gid = rg[at];
+    const bool occupied = gid >= 0;
+    *x = occupied ? fmaxf(g_rem[min(gid, n_gridlets - 1)], 1e-30f) : 0.0f;
+    *t = occupied ? __int2float_rn(gid) : 1073741824.0f;
+  }
+};
+
+// The per-row inputs, f32 [R]: effective MIPS, PEs, policy (1 = space-
+// shared), reserved PEs, row up.
+struct RowIn {
+  const float* mips;
+  const float* npe;
+  const float* pol;
+  const float* blk;
+  const float* ok;
+};
+
 // Fills the row's sort keys in shared memory (remaining and tie, BIG
 // where the slot is invalid) and returns the occupancy.  Ends on a
 // barrier: the keys are visible to the whole block.
-__device__ int row_keys(const float* __restrict__ rem,
-                        const float* __restrict__ tie, size_t row, int J,
-                        bool dead, float* key, float* tkey, int* redi) {
+__device__ int row_keys(const TableIn& in, size_t row, int J, bool dead,
+                        float* key, float* tkey, int* redi) {
   int n_valid = 0;
   for (int j = threadIdx.x; j < J; j += blockDim.x) {
-    const float x = rem[row + j];
+    float x, t;
+    in.slot(row + j, &x, &t);
     const bool valid = (x > 0.0f) && (x < kBig) && !dead;
     key[j] = valid ? x : kBig;
-    tkey[j] = valid ? tie[row + j] : kBig;
+    tkey[j] = valid ? t : kBig;
     n_valid += valid ? 1 : 0;
   }
   return block_sum(n_valid, redi);
@@ -214,7 +315,7 @@ __device__ int row_keys(const float* __restrict__ rem,
 
 // The lexsort rank of slots base + s * blockDim + threadIdx (s <
 // kPerThread): #{q : (key_q, tie_q, q) < (key_j, tie_j, j)}, the exact
-// inverse of the row's stable lexsort permutation.
+// inverse of the row's stable lexsort permutation (the slab's rank).
 __device__ void pairwise_rank(const float* key, const float* tkey, int J,
                               int base, float* rk) {
   float mk[kPerThread], mt[kPerThread];
@@ -241,77 +342,171 @@ __device__ void pairwise_rank(const float* key, const float* tkey, int J,
   for (int s = 0; s < kPerThread; ++s) rk[s] = static_cast<float>(cnt[s]);
 }
 
-// One block per resource row.  rank_in == nullptr: fresh rank (written
-// to rank_out when that is non-null); otherwise the injected rank.
+// Column a precedes column b in the row's lexsort order: (key, tie key,
+// column) compared lexicographically as f32 values (the plain version's
+// two stable sorts); padding columns (>= J) follow every slot.
+__device__ __forceinline__ bool precedes(int a, int b, const float* key,
+                                         const float* tkey, int J) {
+  if (a >= J || b >= J) return a < b;
+  const float ka = key[a], kb = key[b];
+  if (ka != kb) return ka < kb;
+  const float ta = tkey[a], tb = tkey[b];
+  if (ta != tb) return ta < tb;
+  return a < b;
+}
+
+// Sorts the columns 0..n-1 (n the power of two >= J) into idx by
+// `precedes`: the bitonic network, pairs (lo, lo + s) with bit s of lo
+// clear, ascending where bit k of lo is clear; a barrier after every
+// stage, the last one included.  idx[p] for p < J is then the column of
+// rank p.
+__device__ void sort_row(const float* key, const float* tkey, int J, int n,
+                         unsigned short* idx) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    idx[i] = static_cast<unsigned short>(i);
+  __syncthreads();
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int s = k >> 1; s > 0; s >>= 1) {
+      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
+        const int lo = 2 * i - (i & (s - 1)), hi = lo + s;
+        const int a = idx[lo], b = idx[hi];
+        if (precedes(b, a, key, tkey, J) == ((lo & k) == 0)) {
+          idx[lo] = static_cast<unsigned short>(b);
+          idx[hi] = static_cast<unsigned short>(a);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One block per resource row.  The rank the row's shares are cut by:
+//   rank_in == nullptr: a fresh sort (written to rank_out when that is
+//     non-null);
+//   rank_in, flags == nullptr: the injected rank;
+//   flags (the checked form): the carried rank rank_in if *slab_ok and
+//     every row's flag hold, else a fresh sort of every row; rank_out
+//     gets the rank used, and block 0 adds a reseed to *n_reseeds.
+// Shared memory: key, tkey [J] f32, then idx [n] u16 for a sort.
 __global__ void __launch_bounds__(kScanThreads)
-event_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
-                  const float* __restrict__ mips, const float* __restrict__ npe,
-                  const float* __restrict__ pol, const float* __restrict__ blk,
-                  const float* __restrict__ ok,
-                  const float* __restrict__ rank_in,
+event_scan_kernel(TableIn in, RowIn rows, const float* __restrict__ rank_in,
+                  const int* __restrict__ flags,
+                  const bool* __restrict__ slab_ok,
+                  int* __restrict__ n_reseeds,
                   float* __restrict__ rate_out, float* __restrict__ tmin_out,
                   int* __restrict__ amin_out, int* __restrict__ occ_out,
-                  float* __restrict__ rank_out, int J) {
+                  float* __restrict__ rank_out, int R, int J, int n) {
   extern __shared__ float smem[];
   float* key = smem;            // remaining, BIG where the slot is invalid
   float* tkey = smem + J;       // tie key, BIG where invalid
-  float* tt = smem + 2 * J;     // completion forecast t
+  unsigned short* idx = reinterpret_cast<unsigned short*>(smem + 2 * J);
   __shared__ float redf[32];
   __shared__ int redi[32];
 
   const int r = blockIdx.x;
   const size_t row = static_cast<size_t>(r) * J;
-  const RowMask rm(npe, pol, blk, ok, r);
-  const int occ = row_keys(rem, tie, row, J, rm.dead, key, tkey, redi);
-  const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol, mips[r]);
+  const RowMask rm(rows.npe, rows.pol, rows.blk, rows.ok, r);
+  const int occ = row_keys(in, row, J, rm.dead, key, tkey, redi);
+  const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol, rows.mips[r]);
 
+  bool fresh = rank_in == nullptr;
+  if (flags != nullptr) {       // the same answer in every block
+    int all = *slab_ok ? 1 : 0;
+    for (int q = threadIdx.x; q < R; q += blockDim.x) all &= flags[q] != 0;
+    fresh = !__syncthreads_and(all);
+    if (fresh && r == 0 && threadIdx.x == 0) *n_reseeds += 1;
+  }
+
+  // rate and forecast of column j at rank rk (BIG where invalid)
+  auto emit = [&](int j, float rk) {
+    const float kj = key[j];
+    const bool valid = kj < kBig;
+    const float rate = valid ? fig8.rate(rk) : 0.0f;
+    rate_out[row + j] = rate;
+    if (rank_out != nullptr) rank_out[row + j] = rk;
+    return valid ? __fdiv_rn(kj, fmaxf(rate, 1e-30f)) : kBig;
+  };
   float tmin_local = kBig;
-  for (int base = 0; base < J; base += kPerThread * blockDim.x) {
-    float rk[kPerThread];
-    if (rank_in == nullptr) {
-      pairwise_rank(key, tkey, J, base, rk);
-    } else {
-#pragma unroll
-      for (int s = 0; s < kPerThread; ++s) {
-        const int j = base + s * blockDim.x + threadIdx.x;
-        rk[s] = j < J ? rank_in[row + j] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kPerThread; ++s) {
-      const int j = base + s * blockDim.x + threadIdx.x;
-      if (j >= J) continue;
-      const float kj = key[j];
-      const bool valid = kj < kBig;
-      const float rate = valid ? fig8.rate(rk[s]) : 0.0f;
-      const float t = valid ? __fdiv_rn(kj, fmaxf(rate, 1e-30f)) : kBig;
-      rate_out[row + j] = rate;
-      tt[j] = t;
-      tmin_local = fminf(tmin_local, t);
-      if (rank_out != nullptr) rank_out[row + j] = rk[s];
-    }
+  if (fresh) {
+    sort_row(key, tkey, J, n, idx);
+    for (int p = threadIdx.x; p < J; p += blockDim.x)
+      tmin_local = fminf(tmin_local, emit(idx[p], static_cast<float>(p)));
+  } else {
+    for (int j = threadIdx.x; j < J; j += blockDim.x)
+      tmin_local = fminf(tmin_local, emit(j, rank_in[row + j]));
   }
-  const float tmin = block_min(tmin_local, redf);   // barrier: tt visible
+  const float tmin = block_min(tmin_local, redf);   // barrier: rates visible
 
-  // argmin: earliest forecast, FIFO ties by the tie key, then the column
+  // argmin: earliest forecast, FIFO ties by the tie key, then the column;
+  // a forecast is re-derived from the rate just written, as emit made it
+  auto at_min = [&](int j) {
+    const float kj = key[j];
+    return kj < kBig &&
+           __fdiv_rn(kj, fmaxf(rate_out[row + j], 1e-30f)) <= tmin;
+  };
   float cand_local = kBig;
-  for (int j = threadIdx.x; j < J; j += blockDim.x) {
-    const bool at_min = (tt[j] <= tmin) && (key[j] < kBig);
-    cand_local = fminf(cand_local, at_min ? tkey[j] : kBig);
-  }
+  for (int j = threadIdx.x; j < J; j += blockDim.x)
+    if (at_min(j)) cand_local = fminf(cand_local, tkey[j]);
   const float tie_min = block_min(cand_local, redf);
   int col_local = J;
-  for (int j = threadIdx.x; j < J; j += blockDim.x) {
-    const bool at_min = (tt[j] <= tmin) && (key[j] < kBig);
-    const float cand = at_min ? tkey[j] : kBig;
-    if (at_min && cand <= tie_min) col_local = min(col_local, j);
-  }
+  for (int j = threadIdx.x; j < J; j += blockDim.x)
+    if (at_min(j) && tkey[j] <= tie_min) col_local = min(col_local, j);
   const int amin = block_min(col_local, redi);
   if (threadIdx.x == 0) {
     tmin_out[r] = tmin;
     amin_out[r] = amin;
     occ_out[r] = occ;
   }
+}
+
+// The checked form's first pass, one block per row: flags[r] = 1 iff the
+// carried rank still yields row r's Fig 8 rates (`_partition_ok`): the
+// row never consults its rank (space-shared, or g <= P_eff), or the
+// lexicographic max of its carried MaxShare side (valid, rank < msc)
+// lies strictly below the min of its MinShare side (rank >= msc).  With
+// the carry invalid (!*slab_ok) there is nothing to decide.
+__global__ void __launch_bounds__(kScanThreads)
+event_scan_check_kernel(TableIn in, RowIn rows,
+                        const float* __restrict__ carry,
+                        const bool* __restrict__ slab_ok,
+                        int* __restrict__ flags, int J) {
+  if (!*slab_ok) return;
+  extern __shared__ float smem[];
+  float* key = smem;
+  float* tkey = smem + J;
+  __shared__ float redf[32];
+  __shared__ int redi[32];
+
+  const int r = blockIdx.x;
+  const size_t row = static_cast<size_t>(r) * J;
+  const RowMask rm(rows.npe, rows.pol, rows.blk, rows.ok, r);
+  const int occ = row_keys(in, row, J, rm.dead, key, tkey, redi);
+  const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol, 0.0f);
+  if (fig8.whole_pe) {
+    if (threadIdx.x == 0) flags[r] = 1;
+    return;
+  }
+  float lo = -kBig, hi = kBig;
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    if (key[j] >= kBig) continue;
+    if (carry[row + j] < fig8.msc)
+      lo = fmaxf(lo, key[j]);
+    else
+      hi = fminf(hi, key[j]);
+  }
+  const float rem_lo = block_max(lo, redf);
+  const float rem_hi = block_min(hi, redf);
+  float tlo = -kBig, thi = kBig;
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    if (key[j] >= kBig) continue;
+    const bool left = carry[row + j] < fig8.msc;
+    if (left && key[j] == rem_lo) tlo = fmaxf(tlo, tkey[j]);
+    if (!left && key[j] == rem_hi) thi = fminf(thi, tkey[j]);
+  }
+  const float tie_lo = block_max(tlo, redf);
+  const float tie_hi = block_min(thi, redf);
+  if (threadIdx.x == 0)
+    flags[r] = (rem_lo < rem_hi) || (rem_lo == rem_hi && tie_lo < tie_hi);
 }
 
 // One block per link row.  cap == nullptr: the private-link form.
@@ -391,38 +586,114 @@ link_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
   }
 }
 
+// An order-preserving image of a (non-NaN) f32 in a signed int, so that
+// atomicMin on the images takes the f32 minimum, and its inverse.
+__device__ __forceinline__ int ordered(float f) {
+  const int b = __float_as_int(f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float from_ordered(int o) {
+  return __int_as_float(o >= 0 ? o : o ^ 0x7fffffff);
+}
+
+// One block.  Shared memory: the S + 1 segment offsets, then the
+// per-segment ordered minimum, ordered safe minimum and due count.  A
+// thread takes candidates i = tid, tid + blockDim, ..., kFrontierLoads at
+// a time (loads in flight together), keeps running values for the
+// segment its candidate lies in, and folds them into that segment's
+// shared entry when it moves on to a later segment, and at the end.
 __global__ void __launch_bounds__(kFrontierThreads)
 event_frontier_kernel(const float* __restrict__ cand,
                       const float* __restrict__ cuts,
-                      const int* __restrict__ off, int S,
-                      float* __restrict__ mins, int* __restrict__ counts,
-                      float* __restrict__ safe) {
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  float t_star = INFINITY;
-  for (int s = 0; s < S; ++s) {
-    float mn = INFINITY, sf = INFINITY;
-    for (int i = off[s] + threadIdx.x; i < off[s + 1]; i += blockDim.x) {
-      const float c = cand[i];
-      mn = fminf(mn, c);
-      if (cuts == nullptr || cuts[i] > 0.5f) sf = fminf(sf, c);
-    }
-    mn = block_min(mn, redf);
-    sf = block_min(sf, redf);
-    if (threadIdx.x == 0) {
-      mins[s] = mn;
-      safe[s] = sf;
-    }
-    t_star = fminf(t_star, mn);
+                      const int* __restrict__ off, int S, int C,
+                      float* __restrict__ t_star_out, bool* __restrict__ fired,
+                      int* __restrict__ counts, float* __restrict__ t_safe_out,
+                      float* __restrict__ mins) {
+  extern __shared__ int fsm[];
+  int* soff = fsm;              // [S + 1]
+  int* smin = fsm + S + 1;      // [S]
+  int* ssafe = smin + S;        // [S]
+  int* scount = ssafe + S;      // [S]
+  const int inf_o = ordered(INFINITY);
+  for (int q = threadIdx.x; q <= S; q += blockDim.x) soff[q] = off[q];
+  for (int q = threadIdx.x; q < S; q += blockDim.x) {
+    smin[q] = inf_o;
+    ssafe[q] = inf_o;
+    scount[q] = 0;
   }
-  for (int s = 0; s < S; ++s) {
-    int due = 0;
-    for (int i = off[s] + threadIdx.x; i < off[s + 1]; i += blockDim.x) {
-      const float c = cand[i];
-      due += (c <= t_star && c < INFINITY) ? 1 : 0;
+  __syncthreads();
+  constexpr int kStride = kFrontierThreads;
+  constexpr int kSpan = kFrontierLoads * kStride;
+
+  // pass 1: each segment's minimum and minimum horizon-cutting candidate
+  int s = 0;
+  float mn = INFINITY, sf = INFINITY;
+  for (int base = threadIdx.x; base < C; base += kSpan) {
+    float c[kFrontierLoads], cut[kFrontierLoads];
+#pragma unroll
+    for (int u = 0; u < kFrontierLoads; ++u) {
+      const int i = base + u * kStride;
+      c[u] = i < C ? cand[i] : INFINITY;
+      cut[u] = (i < C && (cuts == nullptr || cuts[i] > 0.5f)) ? c[u]
+                                                              : INFINITY;
     }
-    due = block_sum(due, redi);
-    if (threadIdx.x == 0) counts[s] = due;
+#pragma unroll
+    for (int u = 0; u < kFrontierLoads; ++u) {
+      const int i = base + u * kStride;
+      if (i >= C) break;
+      if (i >= soff[s + 1]) {
+        if (mn < INFINITY) atomicMin(&smin[s], ordered(mn));
+        if (sf < INFINITY) atomicMin(&ssafe[s], ordered(sf));
+        mn = sf = INFINITY;
+        do ++s; while (i >= soff[s + 1]);
+      }
+      mn = fminf(mn, c[u]);
+      sf = fminf(sf, cut[u]);
+    }
+  }
+  if (mn < INFINITY) atomicMin(&smin[s], ordered(mn));
+  if (sf < INFINITY) atomicMin(&ssafe[s], ordered(sf));
+  __syncthreads();
+
+  float t_star = INFINITY;
+  for (int q = 0; q < S; ++q) t_star = fminf(t_star, from_ordered(smin[q]));
+  // pass 2: each segment's candidates due at t*
+  s = 0;
+  int due = 0;
+  for (int base = threadIdx.x; base < C; base += kSpan) {
+    float c[kFrontierLoads];
+#pragma unroll
+    for (int u = 0; u < kFrontierLoads; ++u) {
+      const int i = base + u * kStride;
+      c[u] = i < C ? cand[i] : INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < kFrontierLoads; ++u) {
+      const int i = base + u * kStride;
+      if (i >= C) break;
+      if (i >= soff[s + 1]) {
+        if (due) atomicAdd(&scount[s], due);
+        due = 0;
+        do ++s; while (i >= soff[s + 1]);
+      }
+      due += (c[u] <= t_star && c[u] < INFINITY) ? 1 : 0;
+    }
+  }
+  if (due) atomicAdd(&scount[s], due);
+  __syncthreads();
+
+  for (int q = threadIdx.x; q < S; q += blockDim.x) {
+    const float m = from_ordered(smin[q]);
+    mins[q] = m;
+    counts[q] = scount[q];
+    fired[q] = isfinite(m) && m <= t_star;
+  }
+  if (threadIdx.x == 0) {
+    float t_safe = INFINITY;
+    for (int q = 0; q < S; ++q) t_safe = fminf(t_safe, from_ordered(ssafe[q]));
+    *t_star_out = t_star;
+    *t_safe_out = t_safe;
   }
 }
 
@@ -452,7 +723,8 @@ event_scan_slab_kernel(const float* __restrict__ rem,
   const int r = blockIdx.x;
   const size_t row = static_cast<size_t>(r) * J;
   const RowMask rm(npe, pol, blk, ok, r);
-  const int occ = row_keys(rem, tie, row, J, rm.dead, key, tkey, redi);
+  const int occ = row_keys(TableIn{rem, tie, nullptr, nullptr, 0}, row, J,
+                           rm.dead, key, tkey, redi);
   const float g = static_cast<float>(occ);
   const float mips_r = mips[r];
 
@@ -579,6 +851,17 @@ event_scan_slab_kernel(const float* __restrict__ rem,
 
 }  // namespace
 
+// The power of two the fresh rank's sort runs over: the least n >= J.
+static size_t sort_width(int J) {
+  size_t n = 1;
+  while (n < static_cast<size_t>(J)) n <<= 1;
+  return n;
+}
+
+// One limit per kernel, shared by the launchers that launch it.
+static size_t scan_smem_allowed = kDefaultSmem;
+static size_t check_smem_allowed = kDefaultSmem;
+
 extern "C" int event_scan_launch(const float* rem, const float* tie,
                                  const float* mips, const float* npe,
                                  const float* pol, const float* blk,
@@ -586,14 +869,48 @@ extern "C" int event_scan_launch(const float* rem, const float* tie,
                                  float* rate, float* tmin, int* amin,
                                  int* occ, float* rank_out, int R, int J,
                                  void* stream) {
-  static size_t allowed = kDefaultSmem;
-  const size_t smem = static_cast<size_t>(3) * J * sizeof(float);
-  const cudaError_t err = allow_smem(event_scan_kernel, smem, &allowed);
+  const size_t n = sort_width(J);
+  const size_t smem = 2 * static_cast<size_t>(J) * sizeof(float) +
+                      (rank_in == nullptr ? n * sizeof(unsigned short) : 0);
+  const cudaError_t err =
+      allow_smem(event_scan_kernel, smem, &scan_smem_allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   event_scan_kernel<<<R, kScanThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      rem, tie, mips, npe, pol, blk, ok, rank_in, rate, tmin, amin, occ,
-      rank_out, J);
+      TableIn{rem, tie, nullptr, nullptr, 0},
+      RowIn{mips, npe, pol, blk, ok}, rank_in, nullptr, nullptr, nullptr,
+      rate, tmin, amin, occ, rank_out, R, J, static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The checked form: the table gathered from the slot map rg [R, J] and
+// the gridlets' remaining g_rem [N]; carry [R, J] and *slab_ok the
+// carried rank and its flag; flags [R] int scratch; *n_reseeds the
+// device counter; rank_out gets the rank used (never the carry itself).
+extern "C" int event_scan_checked_launch(
+    const int* rg, const float* g_rem, int n_gridlets, const float* mips,
+    const float* npe, const float* pol, const float* blk, const float* ok,
+    const float* carry, const bool* slab_ok, int* flags, int* n_reseeds,
+    float* rate, float* tmin, int* amin, int* occ, float* rank_out, int R,
+    int J, void* stream) {
+  const size_t n = sort_width(J);
+  const size_t keys = 2 * static_cast<size_t>(J) * sizeof(float);
+  const size_t smem = keys + n * sizeof(unsigned short);
+  cudaError_t err =
+      allow_smem(event_scan_check_kernel, keys, &check_smem_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(event_scan_kernel, smem, &scan_smem_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TableIn in{nullptr, nullptr, rg, g_rem, n_gridlets};
+  const RowIn rows{mips, npe, pol, blk, ok};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  event_scan_check_kernel<<<R, kScanThreads, keys, s>>>(in, rows, carry,
+                                                        slab_ok, flags, J);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  event_scan_kernel<<<R, kScanThreads, smem, s>>>(
+      in, rows, carry, flags, slab_ok, n_reseeds, rate, tmin, amin, occ,
+      rank_out, R, J, static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -607,13 +924,20 @@ extern "C" int link_scan_launch(const float* rem, const float* tie,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One block; outputs t_star and t_safe [1], fired (bool), counts and
+// mins [S]; off [S + 1] the segment offsets, C = off[S].
 extern "C" int event_frontier_launch(const float* cand, const float* cuts,
-                                     const int* off, int S, float* mins,
-                                     int* counts, float* safe,
+                                     const int* off, int S, int C,
+                                     float* t_star, bool* fired, int* counts,
+                                     float* t_safe, float* mins,
                                      void* stream) {
-  event_frontier_kernel<<<1, kFrontierThreads, 0,
+  static size_t allowed = kDefaultSmem;
+  const size_t smem = (4 * static_cast<size_t>(S) + 1) * sizeof(int);
+  const cudaError_t err = allow_smem(event_frontier_kernel, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  event_frontier_kernel<<<1, kFrontierThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      cand, cuts, off, S, mins, counts, safe);
+      cand, cuts, off, S, C, t_star, fired, counts, t_safe, mins);
   return static_cast<int>(cudaGetLastError());
 }
 

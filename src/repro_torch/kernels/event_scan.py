@@ -35,6 +35,14 @@ Each function has two implementations with identical arithmetic:
   :func:`event_frontier_ref` -- used for tensors on the CPU and as the
   card-side yardstick the kernels are held against.
 
+The engine's scan is ``event_scan``'s checked form
+(:func:`event_scan_checked_cuda` / :func:`event_scan_checked_ref`): the
+table gathered from the slot map, the carried rank checked, and the
+carried or a fresh rank chosen for every row at once, all on the
+device, as the reference's ``_checked_scan(select_free=True)`` does.
+On the engine's path the kernels write into a :class:`Scratch` of
+reused outputs and take the engine's tensors without casts or checks.
+
 ``kernels.ops`` routes by device.  ``LAUNCHES`` counts kernel launches
 and ``PLAIN_CALLS`` plain-version calls (``kernels._launch``, shared by
 every kernel module), so a run can show which path it took.
@@ -155,6 +163,69 @@ def event_scan_ref(remaining, mips_eff, num_pe, tie=None, policy=None,
     if with_rank:
         res = res + (rank,)
     return res
+
+
+def _gather_table(row_gridlet, remaining):
+    """The [R, J] job-slot table from the slot map (gridlet index, -1 =
+    empty) as the reference's ``_table_inputs`` gathers it: an occupied
+    slot holds its gridlet's remaining, clamped to 1e-30 (0 marks an
+    empty slot), and the gridlet index as its tie key; an empty slot
+    holds 0 and 2^30."""
+    occupied = row_gridlet >= 0
+    gid = torch.clamp(row_gridlet.to(torch.int64), 0, remaining.shape[0] - 1)
+    rem = torch.where(occupied, torch.clamp_min(remaining[gid], 1e-30), 0.0)
+    tie = torch.where(occupied, row_gridlet, 2 ** 30).to(torch.float32)
+    return rem, tie
+
+
+def _partition_ok(rem, tie, valid, rank, npe_e, g, pol):
+    """True iff the carried rank still yields the exact Fig 8 rate
+    assignment the fresh lexsort rank would (the reference engine's
+    ``_partition_ok``): in every row that consults its rank, the carried
+    MaxShare side's lexicographic max lies strictly below the MinShare
+    side's min."""
+    m = torch.clamp_min(npe_e, 1.0)
+    k = torch.floor(g / m)
+    extra = g - k * m
+    msc = (npe_e - extra) * k
+    left = valid & (rank < msc)
+    right = valid & (rank >= msc)
+    rem_lo = torch.where(left, rem, -BIG).max(dim=1, keepdim=True).values
+    rem_hi = torch.where(right, rem, BIG).min(dim=1, keepdim=True).values
+    tie_lo = torch.where(left & (rem == rem_lo), tie, -BIG).max(
+        dim=1, keepdim=True).values
+    tie_hi = torch.where(right & (rem == rem_hi), tie, BIG).min(
+        dim=1, keepdim=True).values
+    row_ok = (rem_lo < rem_hi) | ((rem_lo == rem_hi) & (tie_lo < tie_hi))
+    rank_free = (pol > 0.5) | (g <= npe_e)
+    return (rank_free | row_ok).all()
+
+
+def event_scan_checked_ref(row_gridlet, remaining, mips_eff, num_pe,
+                           policy, pe_blocked, row_ok, rank_carry, slab_ok,
+                           n_reseeds):
+    """Plain PyTorch checked scan: the reference engine's
+    ``_checked_scan(select_free=True)`` from the slot map.
+
+    row_gridlet i32[R, J] (-1 = empty slot), remaining f32[N]; the
+    per-row f32[R] mips_eff, num_pe, policy, pe_blocked, row_ok; the
+    carried rank f32[R, J] and its flag slab_ok (bool[]).  The table is
+    gathered (:func:`_gather_table`), the carry kept if ``slab_ok`` and
+    :func:`_partition_ok` hold, else every row takes the fresh lexsort
+    rank; ``n_reseeds`` (i32[], updated in place) counts the fresh ones.
+    Returns :func:`event_scan_ref`'s outputs with the rank used (one
+    plain ``event_scan`` call)."""
+    rem, tie = _gather_table(row_gridlet, remaining)
+    pol = policy[:, None]
+    npe_e, valid, g = _row_masks(rem, num_pe[:, None], pol,
+                                 pe_blocked[:, None], row_ok[:, None])
+    use = slab_ok & _partition_ok(rem, tie, valid, rank_carry, npe_e, g, pol)
+    fresh = _lexsort_rank(rem, tie, valid)[0]
+    n_reseeds.add_((~use).to(torch.int32))
+    return event_scan_ref(rem, mips_eff, num_pe, tie=tie, policy=policy,
+                          pe_blocked=pe_blocked, row_ok=row_ok,
+                          rank=torch.where(use, rank_carry, fresh),
+                          with_rank=True)
 
 
 def _live_rows(row_ok, live):
@@ -413,6 +484,43 @@ def event_frontier_ref(cand, sizes, cuts=None):
 # CUDA kernels (csrc/event_scan.cu), built at first use
 # ----------------------------------------------------------------------
 
+class Scratch:
+    """The kernel outputs one engine run reuses.  Each layout has two
+    sets, handed out in turn: a call's outputs stay intact through the
+    next call of that layout and are rewritten by the one after.  The
+    engine reads every result of a scan or a frontier before the call
+    after next (a scan's rank is at most the next scan's carry; a
+    horizon's t_safe lives until the next committing frontier), so it
+    never holds a result that a call rewrites.  A set is its tensors and
+    their data pointers."""
+
+    def __init__(self):
+        self._rings = {}
+
+    def take(self, key, make):
+        ring = self._rings.get(key)
+        if ring is None:
+            ring = self._rings[key] = [None, None, 0]
+        i = ring[2]
+        ring[2] = 1 - i
+        if ring[i] is None:
+            outs = make()
+            ring[i] = (outs, tuple(t.data_ptr() for t in outs))
+        return ring[i]
+
+
+def _scan_outputs(r, j, dev):
+    """(rate, t_min, argmin, occupancy, rank, row flags) of a checked
+    scan."""
+    f32, i32 = torch.float32, torch.int32
+    return (torch.empty((r, j), dtype=f32, device=dev),
+            torch.empty((r,), dtype=f32, device=dev),
+            torch.empty((r,), dtype=i32, device=dev),
+            torch.empty((r,), dtype=i32, device=dev),
+            torch.empty((r, j), dtype=f32, device=dev),
+            torch.empty((r,), dtype=i32, device=dev))
+
+
 def event_scan_cuda(remaining, mips_eff, num_pe, tie=None, policy=None,
                     pe_blocked=None, row_ok=None, *, with_rank=False,
                     rank=None):
@@ -456,6 +564,49 @@ def event_scan_cuda(remaining, mips_eff, num_pe, tie=None, policy=None,
     if with_rank:
         res = res + (rank if rank is not None else rank_out,)
     return res
+
+
+def event_scan_checked_cuda(row_gridlet, remaining, mips_eff, num_pe,
+                            policy, pe_blocked, row_ok, rank_carry, slab_ok,
+                            n_reseeds, *, scratch=None):
+    """:func:`event_scan_checked_ref` as one launcher call: two kernels
+    (the per-row check, then the scan, which reads the check's flags),
+    no host read; the same outputs bitwise and the same count added to
+    ``n_reseeds``, on the device.  With ``scratch`` (an engine run's
+    :class:`Scratch`) the inputs are taken as the engine makes them,
+    unchecked, and the outputs are the scratch's; without it every
+    input is checked and the outputs are new."""
+    if remaining.device.type != "cuda":
+        raise ValueError("event_scan_checked_cuda takes CUDA tensors")
+    r, j = row_gridlet.shape
+    dev = remaining.device
+    if scratch is None:
+        f32 = torch.float32
+        _check(row_gridlet, "row_gridlet", (r, j), torch.int32, dev)
+        _check(remaining, "remaining", (remaining.shape[0],), f32, dev)
+        for name, v in (("mips_eff", mips_eff), ("num_pe", num_pe),
+                        ("policy", policy), ("pe_blocked", pe_blocked),
+                        ("row_ok", row_ok)):
+            _check(v, name, (r,), f32, dev)
+        _check(rank_carry, "rank_carry", (r, j), f32, dev)
+        _check(slab_ok, "slab_ok", (), torch.bool, dev)
+        _check(n_reseeds, "n_reseeds", (), torch.int32, dev)
+        outs = _scan_outputs(r, j, dev)
+        out_ptrs = tuple(t.data_ptr() for t in outs)
+    else:
+        outs, out_ptrs = scratch.take(("event_scan", r, j),
+                                      lambda: _scan_outputs(r, j, dev))
+    if r:
+        rate, tmin, amin, occ, rank, flags = out_ptrs
+        err = _lib().event_scan_checked_launch(
+            row_gridlet.data_ptr(), remaining.data_ptr(), remaining.shape[0],
+            mips_eff.data_ptr(), num_pe.data_ptr(), policy.data_ptr(),
+            pe_blocked.data_ptr(), row_ok.data_ptr(), rank_carry.data_ptr(),
+            slab_ok.data_ptr(), flags, n_reseeds.data_ptr(), rate, tmin,
+            amin, occ, rank, r, j, _stream(dev))
+        _raise_on(err, "event_scan")
+        LAUNCHES["event_scan"] += 1
+    return outs[:5]
 
 
 def event_scan_slab_cuda(remaining, mips_eff, num_pe, k, tie=None,
@@ -537,30 +688,45 @@ def _segment_offsets(sizes, device):
     return torch.tensor(acc, dtype=torch.int32, device=device)
 
 
-def event_frontier_cuda(cand, sizes, cuts=None):
-    """:func:`event_frontier_ref` as one CUDA kernel launch (one block;
-    ``_frontier_finish`` stays in torch)."""
+def _frontier_outputs(n_src, dev):
+    """(t_star, fired, counts, t_safe, per-source min) of a frontier."""
+    f32 = torch.float32
+    return (torch.empty((), dtype=f32, device=dev),
+            torch.empty((n_src,), dtype=torch.bool, device=dev),
+            torch.empty((n_src,), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=f32, device=dev),
+            torch.empty((n_src,), dtype=f32, device=dev))
+
+
+def event_frontier_cuda(cand, sizes, cuts=None, *, scratch=None):
+    """:func:`event_frontier_ref` as one CUDA kernel launch, which writes
+    all five outputs.  With ``scratch`` (an engine run's
+    :class:`Scratch`; the engine's candidates are f32, contiguous and
+    laid out as ``sizes`` says) the candidates are taken unchecked and
+    the outputs are the scratch's; without it the inputs are cast and
+    checked and the outputs are new."""
     if cand.device.type != "cuda":
         raise ValueError("event_frontier_cuda takes CUDA tensors")
     n_src = len(sizes)
     c = cand.shape[0]
-    if sum(sizes) != c:
-        raise ValueError("segment layout out of sync with candidates")
     dev = cand.device
-    cand = cand.to(torch.float32).contiguous()
-    _check(cand, "cand", (c,), torch.float32, dev)
-    if cuts is not None:
-        cuts = cuts.to(torch.float32).contiguous()
-        _check(cuts, "cuts", (c,), torch.float32, dev)
+    if scratch is None:
+        if sum(sizes) != c:
+            raise ValueError("segment layout out of sync with candidates")
+        cand = cand.to(torch.float32).contiguous()
+        _check(cand, "cand", (c,), torch.float32, dev)
+        if cuts is not None:
+            cuts = cuts.to(torch.float32).contiguous()
+            _check(cuts, "cuts", (c,), torch.float32, dev)
+        outs = _frontier_outputs(n_src, dev)
+        out_ptrs = tuple(t.data_ptr() for t in outs)
+    else:
+        outs, out_ptrs = scratch.take(("event_frontier", n_src),
+                                      lambda: _frontier_outputs(n_src, dev))
     off = _segment_offsets(tuple(sizes), dev)
-    mins = torch.empty((n_src,), dtype=torch.float32, device=dev)
-    counts = torch.empty((n_src,), dtype=torch.int32, device=dev)
-    safe = torch.empty((n_src,), dtype=torch.float32, device=dev)
-    if n_src:
-        err = _lib().event_frontier_launch(
-            _ptr(cand), _ptr(cuts), _ptr(off), n_src, _ptr(mins),
-            _ptr(counts), _ptr(safe),
-            _stream(dev))
-        _raise_on(err, "event_frontier")
-        LAUNCHES["event_frontier"] += 1
-    return _frontier_finish(mins, counts, safe)
+    err = _lib().event_frontier_launch(
+        cand.data_ptr(), None if cuts is None else cuts.data_ptr(),
+        off.data_ptr(), n_src, c, *out_ptrs, _stream(dev))
+    _raise_on(err, "event_frontier")
+    LAUNCHES["event_frontier"] += 1
+    return outs

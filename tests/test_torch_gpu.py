@@ -53,8 +53,15 @@ def _scan_case(r, j, seed, dev):
     return [x.to(dev) for x in (rem, tie, mips, npe, pol, blk, ok)]
 
 
-def _check_event_scan(r, j, cuda):
+def _check_event_scan(r, j, cuda, ties=False):
+    """Fresh and injected rank; with ``ties``, remaining values on a grid
+    of 50 (many equal, ranked by the tie key), row 0 all invalid and row
+    1 dead."""
     rem, tie, mips, npe, pol, blk, ok = _scan_case(r, j, r * j, cuda)
+    if ties:
+        rem = torch.floor(rem / 50.0) * 50.0
+        rem[0] = 0.0
+        ok[1] = 0.0
     kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
               with_rank=True)
     want = ek.event_scan_ref(rem, mips, npe, **kw)
@@ -66,6 +73,76 @@ def _check_event_scan(r, j, cuda):
     assert all(_bits_equal(a, b) for a, b in zip(want, got))
 
 
+def _checked_case(r, j, seed, dev):
+    """The checked scan's inputs (r >= 4): a slot map over 2 r j
+    gridlets, remaining on a 10 MI grid (many equal; zeros clamped by
+    the gather), time-shared rows of 1-4 PEs, row 1 space-shared, row 2
+    dead, row 3 empty; carries "kept" (each row's MaxShare side
+    reversed: the same partition) and "one row" (row 0's boundary pair
+    swapped: only row 0 fails)."""
+    g = torch.Generator().manual_seed(seed)
+    n = 2 * r * j
+    ids = torch.randperm(n, generator=g)[:r * j].reshape(r, j)
+    rg = torch.where(torch.rand((r, j), generator=g) < 0.7, ids,
+                     -1).to(torch.int32)
+    rg[3] = -1
+    occ0 = torch.nonzero(rg[0] >= 0)[:, 0]
+    if len(occ0) % 3 == 0:
+        rg[0, occ0[0]] = -1
+    remaining = torch.floor(torch.rand(n, generator=g) * 20.0) * 10.0
+    mips = torch.randint(100, 600, (r,), generator=g).to(torch.float32)
+    npe = torch.randint(1, 5, (r,), generator=g).to(torch.float32)
+    npe[0] = 3.0
+    pol, ok = torch.zeros(r), torch.ones(r)
+    pol[1], ok[2] = 1.0, 0.0
+    args = [x.to(dev) for x in (rg, remaining, mips, npe, pol,
+                                torch.zeros(r), ok)]
+    fresh = ek.event_scan_checked_ref(
+        *args, torch.zeros((r, j), device=dev),
+        torch.tensor(False, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev))[4]
+    rem, _ = ek._gather_table(args[0], args[1])
+    npe_e, valid, gj = ek._row_masks(rem, args[3][:, None], args[4][:, None],
+                                     args[5][:, None], args[6][:, None])
+    m = torch.clamp_min(npe_e, 1.0)
+    k = torch.floor(gj / m)
+    msc = (npe_e - (gj - k * m)) * k
+    kept = torch.where(valid & (fresh < msc),
+                       torch.minimum(msc, gj) - 1.0 - fresh, fresh)
+    ms = float(msc[0, 0])
+    assert 0 < ms < float(gj[0, 0])
+    one = kept.clone()
+    one[0] = torch.where(valid[0] & (fresh[0] == ms - 1), ms,
+                         torch.where(valid[0] & (fresh[0] == ms), ms - 1,
+                                     fresh[0]))
+    return args, {"kept": kept, "one row": one}
+
+
+def _check_checked_scan(r, j, cuda):
+    """The checked form with the carry kept, with its flag off, and with
+    a carry that fails in one row only (every row reseeds): outputs and
+    reseed count bitwise to the plain version, also through the
+    engine's reused outputs (both sets of a Scratch)."""
+    args, carries = _checked_case(r, j, r + j, cuda)
+    scratch = ek.Scratch()
+    for carry, flag, reseeds in (("kept", True, 0), ("kept", False, 1),
+                                 ("one row", True, 1)):
+        flag = torch.tensor(flag, device=cuda)
+        counts = [torch.zeros((), dtype=torch.int32, device=cuda)
+                  for _ in range(3)]
+        want = ek.event_scan_checked_ref(*args, carries[carry], flag,
+                                         counts[0])
+        got = ek.event_scan_checked_cuda(*args, carries[carry], flag,
+                                         counts[1])
+        assert all(_bits_equal(a, b) for a, b in zip(want, got))
+        assert _bits_equal(want[4], carries[carry]) == (reseeds == 0)
+        for _ in range(2):
+            got = ek.event_scan_checked_cuda(*args, carries[carry], flag,
+                                             counts[2], scratch=scratch)
+            assert all(_bits_equal(a, b) for a, b in zip(want, got))
+        assert [int(c) for c in counts] == [reseeds, reseeds, 2 * reseeds]
+
+
 def _check_refused_launch(cuda):
     """A row too wide for shared memory, or an SSD chunk too long (the
     kernel takes chunks up to 256), is refused at launch, and the
@@ -74,6 +151,11 @@ def _check_refused_launch(cuda):
     one = torch.ones(2, device=cuda)
     with pytest.raises(RuntimeError, match="event_scan"):
         ek.event_scan_cuda(rem, one, one)
+    with pytest.raises(RuntimeError, match="event_scan"):
+        ek.event_scan_checked_cuda(
+            torch.zeros((2, 30000), dtype=torch.int32, device=cuda), one,
+            one, one, one, one, one, rem, torch.tensor(True, device=cuda),
+            torch.zeros((), dtype=torch.int32, device=cuda))
     with pytest.raises(RuntimeError, match="event_scan_slab"):
         ek.event_scan_slab_cuda(rem, one, one, 4)
     s, n = 2048, 128
@@ -167,6 +249,12 @@ def _check_event_frontier(sizes, cuda):
         want = ek.event_frontier_ref(cand, sizes, use)
         got = ek.event_frontier_cuda(cand, sizes, use)
         assert all(_bits_equal(a, b) for a, b in zip(want, got))
+    # the engine's call: unchecked candidates, reused outputs
+    scratch = ek.Scratch()
+    want = ek.event_frontier_ref(cand, sizes)
+    for _ in range(3):
+        got = ek.event_frontier_cuda(cand, sizes, scratch=scratch)
+        assert all(_bits_equal(a, b) for a, b in zip(want, got))
 
 
 def _link_case(l, t, seed, dev):
@@ -217,16 +305,22 @@ def _check_card_tensors_never_reach_the_plain_versions(cuda):
 
 def test_kernels_match_plain_on_the_card(cuda):
     """Every kernel against its plain version (event_scan in its fresh
-    and injected-rank forms, link_scan with and without the trunk cap,
-    the slab in both forms with and without the live gate -- all
+    and injected-rank forms, also on tie-heavy tables, and in its
+    checked form with the carry kept, its flag off and failing in one
+    row; the one-launch frontier; link_scan with and without the trunk
+    cap; the slab in both forms with and without the live gate -- all
     bitwise; ssd_scan and f32 flash_attention at the reference's
     tolerances, bf16 flash_attention per query row), refused launches,
     and the router sending card tensors only to the kernels."""
     for r, j in ((8, 1), (16, 32), (16, 640), (8, 2000), (3, 3000)):
         _check_event_scan(r, j, cuda)
+    for r, j in ((16, 32), (16, 640), (16, 2000)):
+        _check_event_scan(r, j, cuda, ties=True)
+    for r, j in ((16, 32), (16, 640), (16, 2000), (8, 640)):
+        _check_checked_scan(r, j, cuda)
     _check_refused_launch(cuda)
     for sizes in ((16, 11, 11, 1, 0, 1, 1, 0, 2000, 2000, 11, 1),
-                  (0, 5, 0), (1,), (700, 3)):
+                  (0, 5, 0), (1,), (700, 3), ()):
         _check_event_frontier(sizes, cuda)
     for l, t in ((8, 1), (16, 32), (16, 640), (8, 2000), (6, 3000)):
         _check_link_scan(l, t, cuda)

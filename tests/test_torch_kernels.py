@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import engine as jax_engine
 from repro.kernels import event_scan as jax_event
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
@@ -127,14 +128,99 @@ def _check_defaults_and_empty_rows():
     assert float(port[1][0]) == float(np.float32(ek.BIG))
 
 
+def _checked_case(r, j, seed):
+    """The engine's checked scan inputs (r >= 4): a slot map over 2 r j
+    gridlets (-1 = empty), remaining on a 10 MI grid (many equal; zeros,
+    which the gather clamps to 1e-30), time-shared rows of 1-4 PEs, row
+    1 space-shared, row 2 down, row 3 empty, row 0 with 3 PEs and both
+    share sides; two carried ranks from the reference's own fresh rank:
+    "kept" (each row's MaxShare side reversed, the same partition) and
+    "one row" (row 0's boundary pair swapped, so only row 0 fails)."""
+    rng = np.random.RandomState(seed)
+    n = 2 * r * j
+    ids = rng.permutation(n)[:r * j].reshape(r, j)
+    rg = np.where(rng.rand(r, j) < 0.7, ids, -1).astype(np.int32)
+    rg[3] = -1
+    occ0 = np.flatnonzero(rg[0] >= 0)
+    if len(occ0) % 3 == 0:
+        rg[0, occ0[0]] = -1
+    remaining = (np.floor(rng.rand(n) * 20.0) * 10.0).astype(np.float32)
+    mips = rng.randint(100, 600, r).astype(np.float32)
+    npe = rng.randint(1, 5, r).astype(np.float32)
+    npe[0] = 3.0
+    pol, blk, ok = (np.zeros(r, np.float32), np.zeros(r, np.float32),
+                    np.ones(r, np.float32))
+    pol[1], ok[2] = 1.0, 0.0
+    rem, tie = _jax_table(rg, remaining)
+    npe_e, valid, g = (np.asarray(x) for x in jax_event._row_masks(
+        rem, npe[:, None], pol[:, None], blk[:, None], ok[:, None]))
+    fresh = np.asarray(jax_event._lexsort_rank(rem, tie, valid)[0])
+    m = np.maximum(npe_e, 1.0)
+    k = np.floor(g / m)
+    msc = (npe_e - (g - k * m)) * k
+    kept = np.where(valid & (fresh < msc), np.minimum(msc, g) - 1.0 - fresh,
+                    fresh).astype(np.float32)
+    ms = msc[0, 0]
+    assert 0 < ms < g[0, 0]
+    one = kept.copy()
+    one[0] = np.where(valid[0] & (fresh[0] == ms - 1), ms,
+                      np.where(valid[0] & (fresh[0] == ms), ms - 1, fresh[0]))
+    return (rg, remaining, mips, npe, pol, blk, ok), {"kept": kept,
+                                                      "one row": one}
+
+
+def _jax_table(rg, remaining):
+    """The reference engine's ``_table_inputs`` gather of the table."""
+    occupied = rg >= 0
+    gid = jnp.clip(rg, 0, remaining.shape[0] - 1)
+    rem = jnp.where(occupied, jnp.maximum(remaining[gid], 1e-30), 0.0)
+    return rem, jnp.where(occupied, rg, 2 ** 30).astype(jnp.float32)
+
+
+def _check_checked(r, j):
+    """``event_scan_checked_ref`` against the reference's
+    ``_checked_scan(select_free=True)`` composed from its parts: the
+    gather, ``_row_masks``, the engine's ``_partition_ok``, then
+    ``event_scan_xla`` on ``where(use, carry, fresh lexsort)``; the
+    carry kept, its flag off, and a carry failing in one row only."""
+    (rg, remaining, mips, npe, pol, blk, ok), carries = _checked_case(
+        r, j, seed=j)
+    rem, tie = _jax_table(rg, remaining)
+    npe_e, valid, g = jax_event._row_masks(rem, npe[:, None], pol[:, None],
+                                           blk[:, None], ok[:, None])
+    fresh = jax_event._lexsort_rank(rem, tie, valid)[0]
+    args = [torch.from_numpy(x) for x in (rg, remaining, mips, npe, pol,
+                                          blk, ok)]
+    for carry, flag, reseeds in (("kept", True, 0), ("kept", False, 1),
+                                 ("one row", True, 1)):
+        rank = carries[carry]
+        use = flag & jax_engine._partition_ok(rem, tie, valid, rank, npe_e,
+                                              g, pol[:, None])
+        want = jax_event.event_scan_xla(
+            rem, mips, npe, tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
+            rank=jnp.where(use, rank, fresh), with_rank=True)
+        count = torch.zeros((), dtype=torch.int32)
+        port = ek.event_scan_checked_ref(*args, torch.from_numpy(rank),
+                                         torch.tensor(flag), count)
+        _assert_bitwise(port, want, NAMES)
+        assert int(count) == int(~use) == reseeds
+        # the carry is used exactly when it passes
+        assert np.array_equal(port[4].numpy(), rank) == (reseeds == 0)
+
+
 def test_event_scan_plain_matches_pallas_and_xla():
     """Fresh rank against the Pallas kernel and the XLA path, injected
-    rank against the reference router, at J in {5, 130, 600}; then the
-    default inputs and empty rows."""
+    rank against the reference router, at J in {5, 130, 600}; the
+    default inputs and empty rows; the engine's checked form against
+    the reference's select-free composition at J = 130; and the
+    frontier over the engine's layout against Pallas and XLA."""
     for j in (5, 130, 600):
         _check_fresh(j)
         _check_injected(j)
     _check_defaults_and_empty_rows()
+    _check_checked(8, 130)
+    _check_frontier(FRONTIER_LAYOUTS[0])
+    jax.clear_caches()
 
 
 def _link_case(l, t, seed):
@@ -211,19 +297,23 @@ FRONTIER_LAYOUTS = (
 )
 
 
-def test_event_frontier_plain_matches_pallas_and_xla():
+def _check_frontier(sizes):
     names = ("t_star", "fired", "counts", "t_safe", "mins")
+    cand, cuts = _frontier_case(sizes, seed=len(sizes))
+    for use_cuts in (None, cuts):
+        jc = None if use_cuts is None else use_cuts.astype(np.float32)
+        pallas = jax_ops.event_frontier(cand, sizes, jc, interpret=True)
+        xla = jax_event.event_frontier_xla(cand, sizes, cuts=jc)
+        port = ops.event_frontier(
+            torch.from_numpy(cand), sizes,
+            None if use_cuts is None else torch.from_numpy(use_cuts))
+        _assert_bitwise(port, pallas, names)
+        _assert_bitwise(port, xla, names)
+
+
+def test_event_frontier_plain_matches_pallas_and_xla():
     for sizes in FRONTIER_LAYOUTS:
-        cand, cuts = _frontier_case(sizes, seed=len(sizes))
-        for use_cuts in (None, cuts):
-            jc = None if use_cuts is None else use_cuts.astype(np.float32)
-            pallas = jax_ops.event_frontier(cand, sizes, jc, interpret=True)
-            xla = jax_event.event_frontier_xla(cand, sizes, cuts=jc)
-            port = ops.event_frontier(
-                torch.from_numpy(cand), sizes,
-                None if use_cuts is None else torch.from_numpy(use_cuts))
-            _assert_bitwise(port, pallas, names)
-            _assert_bitwise(port, xla, names)
+        _check_frontier(sizes)
 
 
 def _slab_case(r, j, seed):
@@ -367,6 +457,11 @@ def test_cpu_tensors_route_to_plain_versions():
         ek.event_scan_cuda(torch.ones(8, 4), torch.ones(8), torch.ones(8))
     with pytest.raises(ValueError):
         ek.event_frontier_cuda(torch.ones(4), (1, 3))
+    with pytest.raises(ValueError):
+        ek.event_scan_checked_cuda(
+            torch.zeros((8, 4), dtype=torch.int32), *[torch.ones(8)] * 6,
+            torch.zeros((8, 4)), torch.tensor(True),
+            torch.zeros((), dtype=torch.int32))
     with pytest.raises(ValueError):
         ek.link_scan_cuda(torch.ones(8, 4), torch.ones(8))
     with pytest.raises(ValueError):
