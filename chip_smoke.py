@@ -6,8 +6,8 @@ Phases (any failure exits non-zero before the result line):
 
 1. card     -- the card's name and power limit (nvidia-smi);
 2. build    -- nvcc builds the kernels from src/repro_torch/kernels/csrc;
-               each flash_attention and ssd_scan kernel's registers and
-               spill bytes from ptxas, and its tensor-core instructions
+               each kernel's registers and spill bytes from ptxas, and
+               its tensor-core instructions
                (HGMMA, HMMA) from cuobjdump's SASS: a bf16 flash instance
                or an SSD pass that multiplies matrices (states, output)
                fails if it spills or has no tensor-core instruction;
@@ -20,7 +20,10 @@ Phases (any failure exits non-zero before the result line):
                kept, the carry's flag off, and a carry that fails in one
                row only (every row reseeds), each with its reseed count;
                the one-launch frontier; link_scan with and without the
-               trunk cap;
+               trunk cap, also with tie keys that tie at t_min in every way
+               its argmin tells apart, and its engine form (tie key from the
+               slot map, trunk occupancy and caps in the kernel) with and
+               without trunks, through one Scratch twice;
 4. main     -- ``simulation.run_experiment`` on the card for the 20u_100j
                (paper section 5 scale) and 4u_512j cells, held bitwise
                against the JAX reference in tests/data/port_ref_main.json,
@@ -28,7 +31,8 @@ Phases (any failure exits non-zero before the result line):
                20u_100j_trunknet (``net_cap=None``) against
                tests/data/port_ref_net.json; every kernel of a cell's
                path must be launched (counts zeroed just before the run,
-               read just after) and the plain versions never;
+               read just after) and the plain versions never; the network
+               cells print host syncs and link_scan launches per superstep;
 5. kernel API -- ``repro_torch.kernels.ops.{event_scan_slab, ssd_scan,
                flash_attention}`` on the card at published widths (the
                20u_100j / 4u_512j / fleet-scale job tables; mamba2-130m
@@ -50,15 +54,25 @@ Phases (any failure exits non-zero before the result line):
                missing) and call time (CUDA events) at the main-path and
                kernel-API shapes, beside its plain version, its bound
                and, where one PyTorch call computes the same function,
-               that call's time;
-7. profile  -- the first WINDOW supersteps of 20u_100j and of
-               20u_100j_net under the profiler: device busy time, idle
-               share, kernel launches and host syncs per superstep, top
-               kernels.  Last: the profiler drops records now and then,
-               and more after a profile this large.
+               that call's time; link_scan also in its engine form and as
+               the engine's ``_link_scan`` call on the network cells' own
+               rows (its kernels a call); the slab at every SLAB_SHAPES
+               entry;
+7. profile  -- the first WINDOW supersteps of 20u_100j, 20u_100j_net and
+               20u_100j_trunknet under the profiler: device busy time,
+               idle share, kernel launches, link_scan launches and host
+               syncs per superstep, top kernels.  Last: the profiler drops
+               records now and then, and more after a profile this large.
 
 Prints a ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.  Imports no JAX.
+
+    python3 chip_smoke.py --compare
+
+runs only the card line, the engine's ``_link_scan`` call times and the
+profile windows, with no check and no result line: those use only what
+earlier trees of the port also have, so a copy of this script beside an
+earlier tree's ``src`` measures that tree the same way.
 """
 from __future__ import annotations
 
@@ -68,6 +82,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -82,6 +97,8 @@ BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 MAIN_CELL = "20u_100j"
 NET_CELL = "20u_100j_net"
+TRUNK_CELL = "20u_100j_trunknet"
+NET_CELLS = (NET_CELL, TRUNK_CELL)
 # cell -> (reference file, the kernels its path runs)
 PATH = ("event_scan", "event_frontier")
 NET_PATH = PATH + ("link_scan",)
@@ -155,8 +172,12 @@ def card_line():
 
 def instance(mangled):
     """'flash_attention bf16 d=128', 'flash_attention f32 d=64',
-    'ssd_scan states bf16', 'ssd_scan pass' ... for a kernel's mangled
-    name, else None."""
+    'ssd_scan states bf16', 'ssd_scan pass', 'link_scan_kernel' ... for
+    a kernel's mangled name, else None."""
+    m = re.search(r"(event_scan|event_scan_check|event_frontier|link_scan|"
+                  r"event_scan_slab)_kernel", mangled)
+    if m is not None:
+        return m.group(0)
     m = re.search(r"flash_kernel(_wgmma)?ILi(\d+)E", mangled)
     if m is not None:
         return (f"flash_attention {'bf16' if m.group(1) else 'f32'} "
@@ -214,7 +235,7 @@ def tensor_core_ops(lib, cuobjdump):
 
 def check_kernel_build(failures):
     """Registers and spills (ptxas) and tensor-core instructions
-    (cuobjdump) of every flash_attention and ssd_scan kernel; the bf16
+    (cuobjdump) of every kernel (event_scan.cu's too); the bf16
     flash instances and the SSD passes that multiply matrices must have
     no spill and at least one tensor-core instruction."""
     from repro_torch.kernels import _build
@@ -379,6 +400,54 @@ def link_inputs(l, t, gen, dev):
     return tuple(x.to(dev) for x in (rem, tie, baud, bg, cap))
 
 
+def odd_ties(l, t, gen, dev):
+    """Tie keys drawn from values the link scan's two-stage argmin tells
+    apart at t_min: -0 and +0, BIG, above BIG and +-inf."""
+    keys = torch.tensor([0.0, -0.0, 1.0, 3.0e38, 3.2e38, float("inf"),
+                         -float("inf"), 2.0 ** 30])
+    return keys[torch.randint(0, len(keys), (l, t), generator=gen)].to(dev)
+
+
+def slot_map(rem, gen):
+    """A transfer-slot map for a table: each transfer its own gridlet
+    (distinct indices), -1 on free slots."""
+    l, t = rem.shape
+    ids = torch.randperm(2 * l * t, generator=gen)[:l * t].reshape(l, t)
+    return torch.where(rem.cpu() > 0, ids, -1).to(torch.int32).to(rem.device)
+
+
+def check_trunks(l, dev):
+    """A trunk topology over l rows for the kernel check: two trunks
+    (3,000 B/s with one background flow, 50,000 B/s with half of one)
+    and private rows."""
+    trunk_of = torch.tensor([i % 3 - 1 for i in range(l)], dtype=torch.int32)
+    trunk_of[0] = 0
+    return (trunk_of.to(dev),
+            torch.where(trunk_of == 0, 3e3, 5e4).to(dev),
+            torch.where(trunk_of == 0, 1.0, 0.5).to(dev))
+
+
+def engine_link_state(c, fleet, t, gen, dev):
+    """The engine's link scan at a network cell's own rows: its params
+    (the cell's scenario), and a state whose [R_pad, t] transfer table
+    holds link_inputs' payloads on the resources' rows (the padding rows
+    empty) under a slot map -- what ``engine._link_scan`` reads.
+    Returns (state, params, R, R_pad)."""
+    from repro_torch.core import engine, simulation
+    r_pad = -(-fleet.r // engine.BLOCK_R) * engine.BLOCK_R
+    rem = link_inputs(r_pad, t, gen, dev)[0].clone()
+    rem[fleet.r:] = 0.0
+    params = simulation._scenario_params(
+        fleet, c["deadline"], c["budget"], c["opt"], c["n_users"],
+        simulation.Scenario(**c["scenario"]), dev)
+    state = types.SimpleNamespace(
+        t=torch.zeros((), device=dev), link_rem=rem,
+        link_gridlet=slot_map(rem, gen),
+        host=engine.HostCounts(n_reseeds=torch.zeros(
+            (), dtype=torch.int32, device=dev)))
+    return state, params, fleet.r, r_pad
+
+
 def engine_layout(n_users, n_jobs, n_res, r_pad):
     """The frontier's segment layout in the committing superstep:
     COMPLETION (R_pad rows), FAILURE/RECOVERY (R), TRACE (1),
@@ -447,6 +516,40 @@ def device_ms(fn, kernels=None, reps=100, tries=3):
         return None, {}
     per = {k: sum(v) / len(v) / 1e3 for k, v in times.items()}
     return sum(per.values()), per
+
+
+def device_ops(fn, reps=50):
+    """(device operations a call, their device ms a call) of ``fn`` from
+    the profiler: every kernel and copy it puts on the card."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    return (len(events) / reps,
+            sum(e.time_range.elapsed_us() for e in events) / reps / 1e3)
+
+
+def engine_link_calls(cells, gen, dev):
+    """The engine's whole link-scan call, ``engine._link_scan``, on each
+    network cell's rows at [R_pad, T] (T the cell's 640 slots): ms a
+    call (CUDA events), and the device operations it makes a call."""
+    from repro_torch.core import engine
+    for name in NET_CELLS:
+        c, g, fleet = cells[name]
+        t = min(g.n, c["n_users"] * 2 * int(fleet.num_pe.max()))
+        state, params, n_res, r_pad = engine_link_state(c, fleet, t, gen,
+                                                        dev)
+
+        def fn():
+            return engine._link_scan(state, params, n_res, r_pad)
+        call_ms = time_ms(fn)
+        n_ops, ms = device_ops(fn)
+        print(f"engine._link_scan {name} [{r_pad},{t}]: {call_ms:.5f} ms "
+              f"per call (CUDA events), {n_ops:.2f} device operations a "
+              f"call, {ms:.5f} ms device a call", flush=True)
 
 
 def ssd_inputs(b, s, h, p, n, dtype, draws, gen, dev):
@@ -706,6 +809,64 @@ def check_cell(name, c, res):
     return bad
 
 
+def windows(cells, dev):
+    """The profile phase: the first WINDOW supersteps of the main cell
+    and both network cells, once unprofiled (wall, host syncs and
+    link_scan launches) and once under the profiler (device busy time,
+    idle share, kernel launches per superstep, top kernels)."""
+    from repro_torch.core import simulation
+    from repro_torch.kernels import event_scan as ek
+    for name in (MAIN_CELL,) + NET_CELLS:
+        phase(f"where the time goes: the first {WINDOW} supersteps of "
+              f"{name}")
+        c, g, fleet = cells[name]
+        window = experiment_kwargs(c, dev, max_events=WINDOW)
+        ek.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulation.run_experiment(g, fleet, c["deadline"],
+                                        c["budget"], **window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_link = ek.LAUNCHES["link_scan"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
+                                      **window)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in device_events(prof):
+            k = e.name.split("(")[0][-48:]
+            n, us = by_name.get(k, (0, 0.0))
+            by_name[k] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in by_name.values()) / 1e6
+        n_kernels = sum(n for n, _ in by_name.values())
+        steps = int(res.n_steps) + int(res.n_spec)
+        print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
+              f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
+              f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
+              f"superstep), link_scan launches {n_link} "
+              f"({n_link / steps:.2f} per superstep), host syncs "
+              f"{res.host_syncs} ({res.host_syncs / steps:.2f} per "
+              f"superstep)", flush=True)
+        for k, (n, us) in sorted(by_name.items(),
+                                 key=lambda x: -x[1][1])[:8]:
+            print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms",
+                  flush=True)
+    ek.reset_counts()
+
+
+def compare(dev):
+    """``--compare``: the card line, the engine's link-scan call and the
+    profile windows of the tree beside this script."""
+    phase("card")
+    print(card_line(), flush=True)
+    cells = load_cells(dev)
+    phase("the engine's link scan call")
+    engine_link_calls(cells, torch.Generator().manual_seed(20), dev)
+    windows(cells, dev)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -713,6 +874,8 @@ def main():
     dev = torch.device("cuda", 0)
     # the plain versions' f32 products stay in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:] == ["--compare"]:
+        return compare(dev)
     failures = []
 
     phase("card")
@@ -816,21 +979,51 @@ def main():
             if not same:
                 failures.append(f"event_frontier {name}")
 
+    names = ("rate", "t_min", "argmin", "occ")
     for l, t in LINK_SHAPES:
         rem, tie, baud, bg, cap = link_inputs(l, t, gen, dev)
-        for form, c in (("private", None), ("trunk cap", cap)):
-            want = ek.link_scan_ref(rem, baud, bg=bg, tie=tie, cap=c)
-            got = ek.link_scan_cuda(rem, baud, bg=bg, tie=tie, cap=c)
+        odd = odd_ties(l, t, gen, dev)
+        lg = slot_map(rem, gen)
+        trunks = check_trunks(l, dev)
+        scratch = ek.Scratch()
+        for form, plain_fn, fn in (
+                ("private", lambda: ek.link_scan_ref(rem, baud, bg=bg,
+                                                     tie=tie),
+                 lambda: (ek.link_scan_cuda(rem, baud, bg=bg, tie=tie),)),
+                ("trunk cap", lambda: ek.link_scan_ref(rem, baud, bg=bg,
+                                                       tie=tie, cap=cap),
+                 lambda: (ek.link_scan_cuda(rem, baud, bg=bg, tie=tie,
+                                            cap=cap),)),
+                ("odd ties", lambda: ek.link_scan_ref(rem, baud, bg=bg,
+                                                      tie=odd, cap=cap),
+                 lambda: (ek.link_scan_cuda(rem, baud, bg=bg, tie=odd,
+                                            cap=cap),)),
+                # the engine form: fresh outputs, then both scratch sets
+                ("engine", lambda: ek.link_scan_tabled_ref(
+                    lg, rem, ek.LinkRows(baud, bg)),
+                 lambda: tuple(ek.link_scan_tabled_cuda(
+                     lg, rem, ek.LinkRows(baud, bg), scratch=sc)
+                     for sc in (None, scratch, scratch))),
+                ("engine trunk", lambda: ek.link_scan_tabled_ref(
+                    lg, rem, ek.LinkRows(baud, bg, *trunks)),
+                 lambda: tuple(ek.link_scan_tabled_cuda(
+                     lg, rem, ek.LinkRows(baud, bg, *trunks), scratch=sc)
+                     for sc in (None, scratch, scratch)))):
+            want, gots = plain_fn(), fn()
             torch.cuda.synchronize()
-            names = ("rate", "t_min", "argmin", "occ")
-            same = [bits_equal(a, b) for a, b in zip(want, got)]
+            same = [all(bits_equal(a, out[i]) for out in gots)
+                    for i, a in enumerate(want)]
             errs["link_scan"] = max([errs["link_scan"]] + [
-                abs_err(a, b) for a, b in zip(want, got)])
-            print(f"link_scan {form:9s} [{l},{t}]: " + " ".join(
+                abs_err(a, b) for a, b in zip(want, gots[0])])
+            # the scratch's two calls must write its two output sets
+            rings = len(gots) < 3 or (gots[1][0].data_ptr() !=
+                                      gots[2][0].data_ptr())
+            print(f"link_scan {form:12s} [{l},{t}]: " + " ".join(
                 f"{n}={'ok' if s_ else 'DIFF'}" for n, s_ in zip(names,
-                                                                 same)),
-                flush=True)
-            if not all(same):
+                                                                 same)) +
+                ("" if len(gots) < 3 else
+                 f" (scratch {'ok' if rings else 'ONE SET'})"), flush=True)
+            if not all(same) or not rings:
                 failures.append(f"link_scan {form} [{l},{t}]")
 
     phase("main path: run_experiment on the card vs the JAX reference")
@@ -852,6 +1045,7 @@ def main():
             launches.update({k: counts[k] for k in PATH})
         if name == NET_CELL:
             launches["link_scan"] = counts["link_scan"]
+        if name in NET_CELLS:
             net_steps = int(res.n_steps) + int(res.n_spec)
             print(f"{name}: per superstep {res.host_syncs / net_steps:.2f} "
                   f"host syncs, {counts['link_scan'] / net_steps:.2f} "
@@ -894,6 +1088,16 @@ def main():
     f4 = 4
     lt = min(g.n, c["n_users"] * 2 * int(fleet.num_pe.max()))
     lrem, ltie, lbaud, lbg, lcap = link_inputs(r, lt, gen, dev)
+    # the engine form as the engine calls it: the trunk cell's own rows
+    # (R_pad 16, resources 0-4 behind one trunk) and a slot map, into a
+    # scratch
+    from repro_torch.core import engine
+    tc, _, tfleet = cells[TRUNK_CELL]
+    estate, eparams, en, er = engine_link_state(tc, tfleet, lt, gen, dev)
+    trunk_rows = engine._link_rows(estate, eparams, en, er)
+    private_rows = trunk_rows._replace(trunk_of=None, trunk_baud=None,
+                                       trunk_bg=None)
+    elg, erem, escratch = estate.link_gridlet, estate.link_rem, ek.Scratch()
     # bytes: rem and tie read, rate written, the row vectors read and
     # written once each; the work is a few compares and one divide per
     # slot, far below the bytes' time
@@ -945,6 +1149,16 @@ def main():
             ("link_scan", "private",
              lambda: ek.link_scan_cuda(lrem, lbaud, bg=lbg, tie=ltie),
              lambda: ek.link_scan_ref(lrem, lbaud, bg=lbg, tie=ltie),
+             link_bytes, link_ops),
+            ("link_scan", "engine trunk",
+             lambda: ek.link_scan_tabled_cuda(elg, erem, trunk_rows,
+                                              scratch=escratch),
+             lambda: ek.link_scan_tabled_ref(elg, erem, trunk_rows),
+             link_bytes + 3 * er * f4, link_ops),
+            ("link_scan", "engine private",
+             lambda: ek.link_scan_tabled_cuda(elg, erem, private_rows,
+                                              scratch=escratch),
+             lambda: ek.link_scan_tabled_ref(elg, erem, private_rows),
              link_bytes, link_ops)):
         call_ms = time_ms(fn)
         kernel_names = KERNEL_NAME.get(f"{name} {form}", KERNEL_NAME[name])
@@ -970,28 +1184,33 @@ def main():
               flush=True)
         rows.append((name, form, ms, plain_ms, bound_ms, by, call_ms,
                      plain_dev, None, shape))
+    engine_link_calls(cells, gen, dev)
 
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ssd_scan as sk
     slab_in, ssd_in, flash_in = api_in
-    sr, sj = SLAB_SHAPES[0]
-    srem, stie, smips, snpe, spol, sblk, sok = slab_in[(sr, sj)]
-    skw = dict(tie=stie, policy=spol, pe_blocked=sblk, row_ok=sok)
     k_slab = SLAB_KS[-1]
-    # the function's own work: a sort per row, then k waves over the row
-    # (share, quotient and advance of every slot: ~8 operations)
-    slab_ops = sr * sj * int(np.ceil(np.log2(sj))) + k_slab * sr * sj * 8
-    slab_bytes = (2 * sr * sj + 5 * sr) * f4 + sr * k_slab * 8
     timed = []
-    for assoc in (True, False):
-        timed.append((
-            "event_scan_slab", "assoc" if assoc else "sequential",
-            f"[{sr},{sj}] k={k_slab}",
-            lambda a=assoc: ek.event_scan_slab_cuda(
-                srem, smips, snpe, k_slab, assoc=a, **skw),
-            lambda a=assoc: ek.event_scan_slab_ref(
-                srem, smips, snpe, k_slab, assoc=a, tree=True, **skw),
-            None, slab_bytes, slab_ops, F32_OPS_PER_S, 200, 20))
+    for sr, sj in SLAB_SHAPES:
+        srem, stie, smips, snpe, spol, sblk, sok = slab_in[(sr, sj)]
+        skw = dict(tie=stie, policy=spol, pe_blocked=sblk, row_ok=sok)
+        # the function's own work: a sort per row, then k waves over the
+        # row (share, quotient and advance of every slot: ~8 operations)
+        slab_ops = (sr * sj * int(np.ceil(np.log2(sj))) +
+                    k_slab * sr * sj * 8)
+        slab_bytes = (2 * sr * sj + 5 * sr) * f4 + sr * k_slab * 8
+        where = "" if (sr, sj) == SLAB_SHAPES[0] else f" [{sr},{sj}]"
+        for assoc in (True, False):
+            timed.append((
+                "event_scan_slab",
+                ("assoc" if assoc else "sequential") + where,
+                f"[{sr},{sj}] k={k_slab}",
+                lambda a=assoc, x=(srem, smips, snpe), kw=skw:
+                    ek.event_scan_slab_cuda(*x, k_slab, assoc=a, **kw),
+                lambda a=assoc, x=(srem, smips, snpe), kw=skw:
+                    ek.event_scan_slab_ref(*x, k_slab, assoc=a, tree=True,
+                                           **kw),
+                None, slab_bytes, slab_ops, F32_OPS_PER_S, 200, 20))
     for case, args in zip(SSD_CASES, ssd_in):
         _, b, s_, h, p_, n, q_, dt_, draws = case
         pq = q_ * (q_ + 1) // 2       # causal (query, key) pairs a chunk
@@ -1054,38 +1273,7 @@ def main():
                      lib_ms, shape))
     ek.reset_counts()
 
-    for name in (MAIN_CELL, NET_CELL):
-        phase(f"where the time goes: the first {WINDOW} supersteps of "
-              f"{name}")
-        c, g, fleet = cells[name]
-        window = experiment_kwargs(c, dev, max_events=WINDOW)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = simulation.run_experiment(g, fleet, c["deadline"],
-                                        c["budget"], **window)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            simulation.run_experiment(g, fleet, c["deadline"], c["budget"],
-                                      **window)
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in device_events(prof):
-            k = e.name.split("(")[0][-48:]
-            n, us = by_name.get(k, (0, 0.0))
-            by_name[k] = (n + 1, us + e.time_range.elapsed_us())
-        busy = sum(us for _, us in by_name.values()) / 1e6
-        n_kernels = sum(n for n, _ in by_name.values())
-        steps = int(res.n_steps) + int(res.n_spec)
-        print(f"window: {steps} supersteps, wall {wall:.3f} s (unprofiled), "
-              f"device busy {busy:.3f} s, idle share {1 - busy / wall:.4f}, "
-              f"{n_kernels} kernel launches ({n_kernels / steps:.0f} per "
-              f"superstep), host syncs {res.host_syncs} "
-              f"({res.host_syncs / steps:.2f} per superstep)", flush=True)
-        for k, (n, us) in sorted(by_name.items(),
-                                 key=lambda x: -x[1][1])[:8]:
-            print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms",
-                  flush=True)
+    windows(cells, dev)
 
     kernels = []
     for name in REPLACES:

@@ -30,8 +30,10 @@ CALENDAR_STEP, BROKER) and the fair-share network (NETWORK, with
 in-flight staging and result return that can contend for its link
 (``network.link_tabled``); concurrent transfers split the link's baud
 rate equally, capped by their shared trunk's fair share where the
-params name trunks, and ``kernels.ops.link_scan`` forecasts the next
-drain exactly as ``event_scan`` forecasts the next completion.
+params name trunks, and the link scan (``link_scan``'s engine form,
+``kernels.event_scan.link_scan_tabled_*``: the tie key, the trunk
+occupancy and caps in the kernel) forecasts the next drain exactly as
+``event_scan`` forecasts the next completion.
 FAILURE, RECOVERY, TRACE, RESERVATION, MARKET and AUCTION are
 registered with +inf candidates and no apply body, so trace codes and
 apply order match the reference; ``run``/``run_direct`` refuse every
@@ -49,7 +51,6 @@ from . import broker as broker_mod
 from . import calendar, des, network, numerics
 from . import economy as econ_mod
 from ..kernels import event_scan as _event_kernels
-from ..kernels import ops as kernel_ops
 from ..kernels.event_scan import BIG as _BIG
 from .segments import group_rank, segment_count
 from .types import (DONE, IN_TRANSIT, INF, QUEUED, RETURNING, RUNNING, SJF,
@@ -157,8 +158,9 @@ class HostCounts:
     loop carry (committing ``n_steps``, speculative ``n_spec``, Fig 8
     scans ``n_scans``), ``syncs``, the device-to-host reads the host
     loop made, and, on the device, ``n_reseeds`` (i32[], the scans that
-    re-sorted: the checked scan adds to it without a read) and the
-    ``scratch`` its kernels write their outputs to."""
+    re-sorted: the checked scan adds to it without a read), the
+    ``scratch`` its kernels write their outputs to and the link scan's
+    padded per-row inputs, ``link_rows`` (built on its first call)."""
     n_reseeds: torch.Tensor
     n_steps: int = 0
     n_spec: int = 0
@@ -166,6 +168,7 @@ class HostCounts:
     syncs: int = 0
     scratch: _event_kernels.Scratch = dataclasses.field(
         default_factory=_event_kernels.Scratch)
+    link_rows: _event_kernels.LinkRows | None = None
 
     def read(self, pred) -> bool:
         """Read one device predicate back to the host."""
@@ -338,36 +341,37 @@ def _xfer_bytes(g):
     return torch.where(g.status == IN_TRANSIT, g.in_bytes, g.out_bytes)
 
 
-def _link_rows(params, n_resources, r_pad):
-    """Per-row link rate and background flows, padded to R_pad (padded
-    rows never hold a transfer)."""
-    pad = r_pad - n_resources
-    return (_pad(params.link_baud, pad, 1.0), _pad(params.bg_flows, pad, 0.0))
+def _link_rows(state, params, n_resources, r_pad):
+    """The link scan's per-row inputs (``LinkRows``: link rate,
+    background flows and any trunk topology) padded to R_pad (padded
+    rows: baud 1, no background flow, no trunk; they never hold a
+    transfer), made on the run's first call and kept in ``host``."""
+    host = state.host
+    if host.link_rows is None:
+        pad = r_pad - n_resources
+        trunks = () if params.trunk_of is None else (
+            _pad(params.trunk_of, pad, -1), _pad(params.trunk_baud, pad, 1.0),
+            _pad(params.trunk_bg, pad, 0.0))
+        host.link_rows = _event_kernels.LinkRows(
+            _pad(params.link_baud, pad, 1.0), _pad(params.bg_flows, pad, 0.0),
+            *trunks)
+    return host.link_rows
 
 
 def _link_scan(state, params, n_resources, r_pad):
-    """Fair-share rates and the next-drain forecast per link through
-    ``kernels.ops.link_scan``, the flat gridlet index as the tie key.
-    With shared trunks each row also gets a rate cap: the trunk's
-    capacity over its occupancy summed across every member row (a
-    cross-row gather, done here in torch over the table)."""
-    pad = r_pad - n_resources
-    baud, bg = _link_rows(params, n_resources, r_pad)
-    tie = torch.where(state.link_gridlet >= 0, state.link_gridlet,
-                      2 ** 30).to(torch.float32)
-    cap = None
-    if params.trunk_of is not None:
-        # live-row occupancy, counted exactly as the kernel counts m
-        live = (baud >= network.TINY) & (baud < network.BIG)
-        valid = ((state.link_rem >= network.TINY) &
-                 (state.link_rem < network.BIG) & live[:, None])
-        occ = valid.to(torch.float32).sum(dim=1)
-        cap = network.trunk_rate_cap(
-            occ, _pad(params.trunk_of, pad, -1),
-            _pad(params.trunk_baud, pad, 1.0),
-            _pad(params.trunk_bg, pad, 0.0))
-    return kernel_ops.link_scan(state.link_rem, baud, bg=bg, tie=tie,
-                                cap=cap)
+    """Fair-share rates and the next-drain forecast per link: the
+    engine form of the link scan, the flat gridlet index (from
+    ``link_gridlet``) as the tie key.  With shared trunks each row's
+    rate is also capped at its trunk's capacity over the occupancy
+    summed across every member row.  On the card one kernel launch does
+    all of it, into the run's scratch; on the CPU the plain version."""
+    rows = _link_rows(state, params, n_resources, r_pad)
+    if state.t.device.type == "cuda":
+        return _event_kernels.link_scan_tabled_cuda(
+            state.link_gridlet, state.link_rem, rows,
+            scratch=state.host.scratch)
+    return _event_kernels.link_scan_tabled_ref(state.link_gridlet,
+                                               state.link_rem, rows)
 
 
 def _pending_entries(state, params, n_resources):
@@ -721,13 +725,13 @@ def _make_sources(fleet, params, n_users, ctx):
         if not _net_on(state):
             return state.t.new_zeros((0,))
         g = state.g
-        baud, bg = _link_rows(params, n_resources,
-                              state.row_gridlet.shape[0])
+        rows = _link_rows(state, params, n_resources,
+                          state.row_gridlet.shape[0])
         gid = state.link_gridlet
         staging = (gid >= 0) & (g.status[torch.clamp(
             gid.to(torch.int64), 0, g.n - 1)] == IN_TRANSIT)
-        bound = state.t + network.fastest_drain(state.link_rem,
-                                                baud[:, None], bg[:, None])
+        bound = state.t + network.fastest_drain(
+            state.link_rem, rows.baud[:, None], rows.bg[:, None])
         pend = _pending_entries(state, params, n_resources)
         return torch.cat([torch.where(staging, bound, INF).reshape(-1),
                           torch.where(pend, g.t_event, INF)])

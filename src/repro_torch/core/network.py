@@ -8,9 +8,10 @@ Two tiers, as in the reference:
 * **Fair-share links** (the engine's ``net_cap > 0``): each resource's
   link splits its baud rate equally over its concurrent transfers plus
   ``bg`` phantom background flows, through the ``[R_pad, T]``
-  transfer-slot table and ``kernels.ops.link_scan``.  A shared trunk
-  caps the rate of every transfer behind it at the trunk's own fair
-  share (:func:`trunk_rate_cap`).
+  transfer-slot table and the link scan
+  (``kernels.event_scan.link_scan_tabled_*``).  A shared trunk caps the
+  rate of every transfer behind it at the trunk's own fair share
+  (:func:`trunk_rate_cap`).
 
 Only transfers that can contend occupy a link slot (:func:`link_tabled`);
 zero-byte payloads and infinite links keep the analytic delay, which

@@ -29,13 +29,15 @@ F = ctypes.c_float
 
 # launcher -> ctypes argument types (every launcher returns its
 # cudaError_t as an int; the last argument is the stream, but for
-# ssd_scan_blocks, which takes the array it writes the block counts to)
+# ssd_scan_blocks, which takes the array it writes the block counts to,
+# and event_scan_slab_max_k, which returns a count)
 _SIGNATURES = {
     "event_scan_launch": [P] * 13 + [I, I, P],
     "event_scan_checked_launch": [P, P, I] + [P] * 14 + [I, I, P],
     "event_frontier_launch": [P, P, P, I, I] + [P] * 6,
-    "link_scan_launch": [P] * 9 + [I, I, P],
+    "link_scan_launch": [P] * 13 + [I, I, P],
     "event_scan_slab_launch": [P] * 9 + [I, I, I, I, P],
+    "event_scan_slab_max_k": [I, I],
     "ssd_scan_launch": [P] * 8 + [I] * 7 + [P],
     "ssd_scan_blocks": [I] * 6 + [P],
     "flash_attention_launch": [P] * 4 + [I] * 8 + [F, F, P],

@@ -53,18 +53,44 @@
 //
 // link_scan -- replaces the Pallas kernel `link_scan`
 //   (event_scan.py: `_link_kernel` and `_link_kernel_cap` over
-//   `_link_math`, pl.pallas_call at :872).  Per row of the [L, T]
-//   transfer-slot table: the live-transfer count m, the fair-share rate
-//   baud / max(m + bg, 1) (capped at the row's trunk share when a cap is
-//   given), t = rem / rate, the row minimum, the FIFO-tie argmin.
+//   `_link_math`, pl.pallas_call at :872), and, in its engine form, what
+//   the reference's engine wraps around it in `_link_scan`
+//   (src/repro/core/engine.py): the tie key from the slot map and, with
+//   shared trunks, each row's occupancy and `network.trunk_rate_cap`.
+//   Per row of the [L, T] transfer-slot table: the live-transfer count m,
+//   the fair-share rate baud / max(m + bg, 1) (capped at the row's trunk
+//   share), t = rem / rate, the row minimum, the FIFO-tie argmin.
 //   Bound: bytes (rem and tie read, rate written: 12 bytes per slot,
 //   ~123 KB at [16, 640], ~37 ns of HBM time), so in practice launch
-//   latency.  Design: one block per row, threads striding over the
-//   slots; four block reductions (count, t_min, tie key at t_min, column)
-//   and no shared row buffer -- a slot's rate and t are recomputed from
-//   its inputs in each pass, with the same instructions, so every pass
-//   sees the same bits.  The cap form is a null-or-not pointer in the
-//   same kernel.  No rank: fair shares are uniform on a row.  Inputs are
+//   latency.  Design: one block per row, the row read once into
+//   registers (kLinkHeld slots a thread; a wider row in strips), two
+//   barriers.  The first pass counts the row (ballots) and takes its
+//   least remaining; t_min is that over the rate -- a correctly rounded
+//   quotient by one positive divisor is monotone in the dividend, so it
+//   is the least forecast -- and the second pass writes the rates and
+//   divides each slot once, to find the slots at t_min.  The argmin's
+//   two stages (the least tie key among the slots at t_min,
+//   then the least column among those) are one 64-bit minimum over the
+//   slots at t_min: an order-preserving unsigned image of the tie key
+//   (-0 made +0 first, so equal keys have equal images) above the
+//   column.  That minimum is the least tie key tie* among the slots at
+//   t_min and, among the slots holding it, the least column j*.
+//   `_link_math` takes tie_min as the least key over every slot, a slot
+//   off t_min keyed BIG, then the least column at t_min with a key <=
+//   tie_min.  So it answers T where no slot is at t_min (empty and dead
+//   rows); T where some slot is off t_min and tie* > BIG (then tie_min =
+//   BIG and no slot at t_min qualifies); and j* otherwise (tie_min =
+//   tie*, and the keys <= tie* at t_min are those equal to it, -0 and +0
+//   alike).  The kernel answers the same, knowing whether a slot is off
+//   t_min from the count of slots at t_min (ballots).  The cap: given
+//   per row (the public trunk form, a null-or-not pointer), or, in the
+//   engine form, computed here from the trunk ids: the block's warps
+//   recount the rows of its trunk mates in parallel (one mate row a
+//   warp, read from L2) in the first pass, and the row takes
+//   trunk_baud / max(M + trunk_bg, 1), M an integer count, exact in any
+//   order.  (A first design, one warp a row with no barrier, measured
+//   twice the old kernel's time on the card: a lone warp's ~40 serial
+//   divisions and three passes, with no other warp to hide them.)  No rank: fair shares are uniform on a row.  Inputs are
 //   finite or infinite, never NaN (the engine makes none); subnormal
 //   remaining or baud values count as zero, as the reference's compiled
 //   comparisons read them.
@@ -97,18 +123,20 @@
 //   the row's next k completions under uninterrupted Fig 8 dynamics.
 //   Bound: bytes (8 bytes a slot read, 8 bytes a wave written: ~82 KB at
 //   [16, 640], ~25 ns of HBM time), so in practice launch latency and
-//   the O(J^2) rank.  Design: one block per row with event_scan's
-//   shared-memory keys (`row_keys`) and a pairwise rank (`pairwise_rank`:
-//   the count of lexicographically smaller slots); only the k heads
-//   (rank < k) matter afterwards, so their remaining and columns are
-//   gathered into shared memory and the waves run on k values, not on
-//   the row: assoc=0 is the sequential recurrence on one thread;
+//   the rank.  Design: one block per row with event_scan's shared-memory
+//   keys (`row_keys`) and its bitonic sort (`sort_row`): the sorted
+//   position of a valid slot is its rank, so the k heads (rank < k) are
+//   the columns idx[0 .. min(occ, k) - 1]; their remaining and columns
+//   are gathered into shared memory and the waves run on k values, not
+//   on the row: assoc=0 is the sequential recurrence on one thread;
 //   assoc=1 builds the k homogeneous (k+1)x(k+1) wave matrices in
 //   parallel and composes them level by level in the Pallas body's
 //   balanced tree (identity-padded, FMA chains in the inner index from
 //   +0, as XLA:CPU compiles `_mats_mul`), then clamps and sums the last
 //   column with XLA's tile-16 cumsum.  The Fig 8 share of rank p in wave
 //   w is `Fig8Row(g - w).rate(p - w)`, the same code event_scan runs.
+//   The matrices bound k by shared memory (`slab_smem`): 32 at J = 640
+//   for assoc=1, 256 for assoc=0; `event_scan_slab_max_k` answers it.
 //
 // Every quotient and product uses the _rn intrinsics: IEEE f32, never
 // contracted, matching the reference's `mips / max(divisor, 1)` and
@@ -129,10 +157,14 @@ using repro_torch::kDefaultSmem;
 
 constexpr float kBig = 3.0e38f;
 constexpr int kScanThreads = 256;
-constexpr int kPerThread = 8;       // rank slots held in registers
 constexpr int kFrontierThreads = 512;
 constexpr int kFrontierLoads = 8;   // candidates a thread loads at once
+// A link row a block, kLinkHeld of its slots a thread; a trunk mate's
+// row is counted by one warp, kLinkSlots loads a lane at a time.
 constexpr int kLinkThreads = 256;
+constexpr int kLinkHeld = 8;
+constexpr int kLinkSlots = 24;
+constexpr int kLinkStrip = 32 * kLinkSlots;
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -141,6 +173,12 @@ __device__ __forceinline__ float warp_min(float v) {
 }
 
 __device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1)
     v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -313,35 +351,6 @@ __device__ int row_keys(const TableIn& in, size_t row, int J, bool dead,
   return block_sum(n_valid, redi);
 }
 
-// The lexsort rank of slots base + s * blockDim + threadIdx (s <
-// kPerThread): #{q : (key_q, tie_q, q) < (key_j, tie_j, j)}, the exact
-// inverse of the row's stable lexsort permutation (the slab's rank).
-__device__ void pairwise_rank(const float* key, const float* tkey, int J,
-                              int base, float* rk) {
-  float mk[kPerThread], mt[kPerThread];
-  int cnt[kPerThread];
-#pragma unroll
-  for (int s = 0; s < kPerThread; ++s) {
-    const int j = base + s * blockDim.x + threadIdx.x;
-    mk[s] = j < J ? key[j] : kBig;
-    mt[s] = j < J ? tkey[j] : kBig;
-    cnt[s] = 0;
-  }
-  for (int q = 0; q < J; ++q) {
-    const float kq = key[q], tq = tkey[q];
-#pragma unroll
-    for (int s = 0; s < kPerThread; ++s) {
-      const int j = base + s * blockDim.x + threadIdx.x;
-      const bool before =
-          (kq < mk[s]) ||
-          (kq == mk[s] && (tq < mt[s] || (tq == mt[s] && q < j)));
-      cnt[s] += before ? 1 : 0;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < kPerThread; ++s) rk[s] = static_cast<float>(cnt[s]);
-}
-
 // Column a precedes column b in the row's lexsort order: (key, tie key,
 // column) compared lexicographically as f32 values (the plain version's
 // two stable sorts); padding columns (>= J) follow every slot.
@@ -509,79 +518,221 @@ event_scan_check_kernel(TableIn in, RowIn rows,
     flags[r] = (rem_lo < rem_hi) || (rem_lo == rem_hi && tie_lo < tie_hi);
 }
 
-// One block per link row.  cap == nullptr: the private-link form.
-struct LinkRow {
-  float baud, bg, cap;
-  bool live, has_cap;
-  // subnormals count as zero, as in the reference's compiled compares
-  __device__ bool valid(float x) const {
-    return live && (x >= FLT_MIN) && (x < kBig);
-  }
-  // rate and forecast of a valid slot, given the row's occupancy m
-  __device__ float rate(float m) const {
-    float r = __fdiv_rn(baud, fmaxf(__fadd_rn(m, bg), 1.0f));
-    return has_cap ? fminf(r, cap) : r;
+// Where a link row's slots come from: the remaining bytes rem [L, T],
+// and the tie key [L, T] (the public form) or the slot map lg (gridlet
+// index, -1 = free; the engine form), whose tie key is the gridlet index,
+// 2^30 on a free slot, as the reference's engine builds it.
+struct LinkIn {
+  const float* rem;
+  const float* tie;
+  const int* lg;
+  __device__ float tie_at(size_t at) const {
+    if (lg == nullptr) return tie[at];
+    const int gid = lg[at];
+    return gid >= 0 ? __int2float_rn(gid) : 1073741824.0f;
   }
 };
 
+// The per-row inputs of the link scan, f32 [L] but trunk_of i32 [L]:
+// baud and background flows; then the rate cap, given (cap) or computed
+// from the trunk ids (trunk_of, trunk_baud, trunk_bg), or neither (the
+// private-link form).
+struct LinkRows {
+  const float* baud;
+  const float* bg;
+  const float* cap;
+  const int* trunk_of;
+  const float* trunk_baud;
+  const float* trunk_bg;
+  // subnormals count as zero, as in the reference's compiled compares
+  __device__ bool live(int l) const {
+    const float b = baud[l];
+    return b >= FLT_MIN && b < kBig;
+  }
+};
+
+__device__ __forceinline__ bool holds_transfer(float x) {
+  return x >= FLT_MIN && x < kBig;
+}
+
+// The transfers on the link row at `row`, counted by one warp (every
+// lane gets the count): kLinkSlots loads a lane in flight at once.
+__device__ int warp_count_row(const float* rem, size_t row, int T,
+                              int lane) {
+  int n = 0;
+  for (int base = 0; base < T; base += kLinkStrip) {
+    float y[kLinkSlots];
+#pragma unroll
+    for (int u = 0; u < kLinkSlots; ++u) {
+      const int j = base + u * 32 + lane;
+      y[u] = j < T ? rem[row + j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLinkSlots; ++u)
+      n += __popc(__ballot_sync(0xffffffffu, holds_transfer(y[u])));
+  }
+  return n;
+}
+
+// An order-preserving unsigned image of a (non-NaN) f32, -0 read as +0.
+__device__ __forceinline__ unsigned tie_image(float f) {
+  const unsigned b = __float_as_uint(__fadd_rn(f, 0.0f));
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// One block per link row, kLinkThreads threads, each holding kLinkHeld
+// slots of the row (remaining and tie key) in registers (a wider row is
+// walked in strips of kLinkThreads * kLinkHeld, re-read by the second
+// pass).  Every load of the first pass is issued before any is waited
+// on (nothing waits on the row's baud); the trunk mates' rows are the
+// one second round of loads.  Two barriers:
+//   pass 1: occupancy (ballots), the least remaining, and with trunks
+//     the mates' transfers (warp w counts the mates w, w + 8, ...);
+//   -- barrier: the row's m, M and least remaining --
+//   the cap and the share; t_min = least remaining / rate (a correctly
+//     rounded quotient by one positive divisor is monotone in the
+//     dividend, so this is the least forecast), BIG if a slot is empty
+//     and that is less;
+//   pass 2: rates written; the least (tie image, column) and the count
+//     of the slots at t_min;
+//   -- barrier: the row's argmin --
 __global__ void __launch_bounds__(kLinkThreads)
-link_scan_kernel(const float* __restrict__ rem, const float* __restrict__ tie,
-                 const float* __restrict__ baud, const float* __restrict__ bg,
-                 const float* __restrict__ cap,
-                 float* __restrict__ rate_out, float* __restrict__ tmin_out,
-                 int* __restrict__ amin_out, int* __restrict__ occ_out,
-                 int T) {
-  __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int l = blockIdx.x;
+link_scan_kernel(LinkIn in, LinkRows rows, float* __restrict__ rate_out,
+                 float* __restrict__ tmin_out, int* __restrict__ amin_out,
+                 int* __restrict__ occ_out, int T) {
+  constexpr int kWarps = kLinkThreads / 32;
+  constexpr int kStrip = kLinkThreads * kLinkHeld;
+  __shared__ int s_occ[kWarps], s_mates[kWarps], s_at[kWarps];
+  __shared__ float s_xmin[kWarps];
+  __shared__ unsigned long long s_key[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l = blockIdx.x, L = gridDim.x;
   const size_t row = static_cast<size_t>(l) * T;
-  LinkRow lr;
-  lr.baud = baud[l];
-  lr.bg = bg[l];
-  lr.has_cap = cap != nullptr;
-  lr.cap = lr.has_cap ? cap[l] : 0.0f;
-  lr.live = (lr.baud >= FLT_MIN) && (lr.baud < kBig);
+  const int n_strips = (T + kStrip - 1) / kStrip;
+  float x[kLinkHeld], tk[kLinkHeld];
+  auto load = [&](int s) {
+#pragma unroll
+    for (int u = 0; u < kLinkHeld; ++u) {
+      const int j = s * kStrip + u * kLinkThreads + threadIdx.x;
+      x[u] = j < T ? in.rem[row + j] : 0.0f;
+      tk[u] = j < T ? in.tie_at(row + j) : 0.0f;
+    }
+  };
+  // with trunks, the trunk ids and liveness of rows lane, 32 + lane, ...
+  const int trunk = rows.trunk_of != nullptr ? rows.trunk_of[l] : -1;
+  int lane_trunk = -1;
+  bool lane_live = false;
+  if (rows.trunk_of != nullptr && lane < L) {
+    lane_trunk = rows.trunk_of[lane];
+    lane_live = rows.live(lane);
+  }
+  load(0);
+  // a dead row holds no transfer
+  const bool live = rows.live(l);
 
-  // Step 1: occupancy
-  int n_valid = 0;
-  for (int j = threadIdx.x; j < T; j += blockDim.x)
-    n_valid += lr.valid(rem[row + j]) ? 1 : 0;
-  const int occ = block_sum(n_valid, redi);
-  const float m = static_cast<float>(occ);
-  const float share = lr.rate(m);
+  // Pass 1 (the last strip loaded stays in x)
+  int occ = 0;
+  float xmin = INFINITY;
+  for (int s = 0; s < n_strips; ++s) {
+    if (s > 0) load(s);
+#pragma unroll
+    for (int u = 0; u < kLinkHeld; ++u) {
+      const bool v = live && holds_transfer(x[u]);
+      occ += __popc(__ballot_sync(0xffffffffu, v));
+      if (v) xmin = fminf(xmin, x[u]);
+    }
+  }
+  int mates = 0;
+  if (trunk >= 0) {
+    int seen = 0;
+    for (int q0 = 0; q0 < L; q0 += 32) {
+      const int q = q0 + lane;
+      if (q0 > 0 && q < L) {
+        lane_trunk = rows.trunk_of[q];
+        lane_live = rows.live(q);
+      }
+      unsigned found = __ballot_sync(
+          0xffffffffu, q < L && q != l && lane_trunk == trunk && lane_live);
+      for (; found; found &= found - 1, ++seen)
+        if (seen % kWarps == warp)
+          mates += warp_count_row(
+              in.rem, static_cast<size_t>(q0 + __ffs(found) - 1) * T, T,
+              lane);
+    }
+  }
+  xmin = warp_min(xmin);
+  if (lane == 0) {
+    s_occ[warp] = occ;
+    s_mates[warp] = mates;
+    s_xmin[warp] = xmin;
+  }
+  __syncthreads();
+  occ = 0;
+  mates = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    occ += s_occ[w];
+    mates += s_mates[w];
+    xmin = fminf(xmin, s_xmin[w]);
+  }
+
+  // The cap: given, or the trunk's fair share over its rows' transfers
+  float cap = rows.cap != nullptr ? rows.cap[l] : kBig;
+  if (trunk >= 0)
+    cap = __fdiv_rn(rows.trunk_baud[l],
+                    fmaxf(__fadd_rn(static_cast<float>(occ + mates),
+                                    rows.trunk_bg[l]),
+                          1.0f));
+  float share = __fdiv_rn(
+      rows.baud[l],
+      fmaxf(__fadd_rn(static_cast<float>(occ), rows.bg[l]), 1.0f));
+  if (rows.cap != nullptr || rows.trunk_of != nullptr)
+    share = fminf(share, cap);
   const float div_rate = fmaxf(share, 1e-30f);
+  float tmin = occ > 0 ? __fdiv_rn(xmin, div_rate) : kBig;
+  if (occ < T) tmin = fminf(tmin, kBig);
 
-  // Step 2: rates and forecasts (BIG on empty slots); step 3: their
-  // row minimum.  The reductions start from +inf, as torch.min does.
-  float tmin_local = INFINITY;
-  for (int j = threadIdx.x; j < T; j += blockDim.x) {
-    const float x = rem[row + j];
-    const bool v = lr.valid(x);
-    rate_out[row + j] = v ? share : 0.0f;
-    tmin_local = fminf(tmin_local, v ? __fdiv_rn(x, div_rate) : kBig);
+  // Pass 2: rates (0 on empty slots); the slots at t_min, their forecast
+  // the same quotient
+  unsigned long long best = ~0ull;
+  int n_at = 0;
+  for (int s = 0; s < n_strips; ++s) {
+    if (n_strips > 1) load(s);
+#pragma unroll
+    for (int u = 0; u < kLinkHeld; ++u) {
+      const int j = s * kStrip + u * kLinkThreads + threadIdx.x;
+      const bool v = live && holds_transfer(x[u]);
+      if (j < T) rate_out[row + j] = v ? share : 0.0f;
+      const bool at = v && __fdiv_rn(x[u], div_rate) <= tmin;
+      n_at += __popc(__ballot_sync(0xffffffffu, at));
+      if (at) {
+        const unsigned long long key =
+            (static_cast<unsigned long long>(tie_image(tk[u])) << 32) |
+            static_cast<unsigned>(j);
+        best = min(best, key);
+      }
+    }
   }
-  const float tmin = block_min(tmin_local, redf);
-
-  // Step 4: lowest tie key among the slots at t_min (BIG elsewhere),
-  // then the lowest column among those
-  float tie_local = INFINITY;
-  for (int j = threadIdx.x; j < T; j += blockDim.x) {
-    const float x = rem[row + j];
-    const bool at_min = lr.valid(x) && __fdiv_rn(x, div_rate) <= tmin;
-    tie_local = fminf(tie_local, at_min ? tie[row + j] : kBig);
+  best = warp_min(best);
+  if (lane == 0) {
+    s_key[warp] = best;
+    s_at[warp] = n_at;
   }
-  const float tie_min = block_min(tie_local, redf);
-  int col_local = T;
-  for (int j = threadIdx.x; j < T; j += blockDim.x) {
-    const float x = rem[row + j];
-    if (lr.valid(x) && __fdiv_rn(x, div_rate) <= tmin &&
-        tie[row + j] <= tie_min)
-      col_local = min(col_local, j);
-  }
-  const int amin = block_min(col_local, redi);
+  __syncthreads();
   if (threadIdx.x == 0) {
+    n_at = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      best = min(best, s_key[w]);
+      n_at += s_at[w];
+    }
+    // `_link_math`'s second stage keeps j* unless a slot off t_min
+    // (keyed BIG) undercuts tie*, or no slot is at t_min
+    const bool kept = n_at == T ||
+                      static_cast<unsigned>(best >> 32) <= tie_image(kBig);
     tmin_out[l] = tmin;
-    amin_out[l] = amin;
+    amin_out[l] = (n_at > 0 && kept) ? static_cast<int>(best & 0xffffffffu)
+                                     : T;
     occ_out[l] = occ;
   }
 }
@@ -698,8 +849,9 @@ event_frontier_kernel(const float* __restrict__ cand,
 }
 
 // One block per resource row: the next K completions of the row.  Shared
-// memory: key, tkey [J]; the heads' remaining and column [K]; for
-// assoc, two banks of (K+1)^2 matrices (K, then ceil(K/2)).
+// memory (`slab_smem`): key, tkey [J]; the heads' remaining and column
+// [K]; for assoc, two banks of (K+1)^2 matrices (K, then ceil(K/2));
+// then the sort's idx [n] u16, n the power of two >= J.
 __global__ void __launch_bounds__(kScanThreads)
 event_scan_slab_kernel(const float* __restrict__ rem,
                        const float* __restrict__ tie,
@@ -709,15 +861,18 @@ event_scan_slab_kernel(const float* __restrict__ rem,
                        const float* __restrict__ blk,
                        const float* __restrict__ ok,
                        float* __restrict__ t_out, int* __restrict__ col_out,
-                       int J, int K, int assoc) {
+                       int J, int n, int K, int assoc) {
   extern __shared__ float smem[];
   float* key = smem;
   float* tkey = smem + J;
   float* hrem = smem + 2 * J;                       // [K]
   int* hcol = reinterpret_cast<int*>(hrem + K);     // [K]
   const int M = K + 1, MM = M * M;
+  const int n_mats = assoc ? K + (K + 1) / 2 : 0;
   float* bank_a = hrem + 2 * K;                     // [K][M][M]
   float* bank_b = bank_a + static_cast<size_t>(K) * MM;
+  unsigned short* idx = reinterpret_cast<unsigned short*>(
+      bank_a + static_cast<size_t>(n_mats) * MM);   // [n]
   __shared__ int redi[32];
 
   const int r = blockIdx.x;
@@ -728,24 +883,14 @@ event_scan_slab_kernel(const float* __restrict__ rem,
   const float g = static_cast<float>(occ);
   const float mips_r = mips[r];
 
-  // heads: the rank-p valid slot for p < min(occ, K); absent ranks read
-  // as remaining 0, column 0 (the reference's empty sums)
-  for (int p = occ + threadIdx.x; p < K; p += blockDim.x) {
-    hrem[p] = 0.0f;
-    hcol[p] = 0;
-  }
-  for (int base = 0; base < J; base += kPerThread * blockDim.x) {
-    float rk[kPerThread];
-    pairwise_rank(key, tkey, J, base, rk);
-#pragma unroll
-    for (int s = 0; s < kPerThread; ++s) {
-      const int j = base + s * blockDim.x + threadIdx.x;
-      if (j < J && key[j] < kBig && rk[s] < static_cast<float>(K)) {
-        const int p = static_cast<int>(rk[s]);
-        hrem[p] = key[j];
-        hcol[p] = j;
-      }
-    }
+  // heads: the rank-p valid slot, idx[p], for p < min(occ, K) (valid
+  // slots key below BIG and sort first); absent ranks read as remaining
+  // 0, column 0 (the reference's empty sums)
+  sort_row(key, tkey, J, n, idx);
+  for (int p = threadIdx.x; p < K; p += blockDim.x) {
+    const bool has = p < occ;
+    hrem[p] = has ? key[idx[p]] : 0.0f;
+    hcol[p] = has ? static_cast<int>(idx[p]) : 0;
   }
   __syncthreads();
   float* t_row = t_out + static_cast<size_t>(r) * K;
@@ -914,13 +1059,20 @@ extern "C" int event_scan_checked_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The public form passes tie and cap (or a null cap), the engine form lg
+// and the trunk vectors (or a null trunk_of); L rows of T slots.
 extern "C" int link_scan_launch(const float* rem, const float* tie,
-                                const float* baud, const float* bg,
-                                const float* cap, float* rate, float* tmin,
-                                int* amin, int* occ, int L, int T,
-                                void* stream) {
-  link_scan_kernel<<<L, kLinkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rem, tie, baud, bg, cap, rate, tmin, amin, occ, T);
+                                const int* lg, const float* baud,
+                                const float* bg, const float* cap,
+                                const int* trunk_of, const float* trunk_baud,
+                                const float* trunk_bg, float* rate,
+                                float* tmin, int* amin, int* occ, int L,
+                                int T, void* stream) {
+  link_scan_kernel<<<L, kLinkThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      LinkIn{rem, tie, lg},
+      LinkRows{baud, bg, cap, trunk_of, trunk_baud, trunk_bg}, rate, tmin,
+      amin, occ, T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -941,22 +1093,42 @@ extern "C" int event_frontier_launch(const float* cand, const float* cuts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The slab kernel's shared memory (its layout above).
+static size_t slab_smem(int J, int K, int assoc) {
+  const size_t mm = static_cast<size_t>(K + 1) * (K + 1);
+  const size_t banks = assoc ? (K + (K + 1) / 2) * mm : 0;
+  return (2 * static_cast<size_t>(J) + 2 * K + banks) * sizeof(float) +
+         sort_width(J) * sizeof(unsigned short);
+}
+
+constexpr int kSlabMaxK = 256;
+
+// The largest K (<= 256) whose slab shared memory the card holds at this
+// J and form; 0 when none does (the row itself is too wide); a negative
+// CUDA error code if the card cannot be asked.
+extern "C" int event_scan_slab_max_k(int J, int assoc) {
+  size_t limit = 0;
+  const cudaError_t err = repro_torch::smem_limit(&limit);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int k = 0;
+  while (k < kSlabMaxK && slab_smem(J, k + 1, assoc) <= limit) ++k;
+  return k;
+}
+
 extern "C" int event_scan_slab_launch(const float* rem, const float* tie,
                                       const float* mips, const float* npe,
                                       const float* pol, const float* blk,
                                       const float* ok, float* t_out,
                                       int* col_out, int R, int J, int K,
                                       int assoc, void* stream) {
-  if (K < 1 || K > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || K > kSlabMaxK) return static_cast<int>(cudaErrorInvalidValue);
   static size_t allowed = kDefaultSmem;
-  const size_t mm = static_cast<size_t>(K + 1) * (K + 1);
-  const size_t banks = assoc ? (K + (K + 1) / 2) * mm : 0;
-  const size_t smem = (2 * static_cast<size_t>(J) + 2 * K + banks) *
-                      sizeof(float);
+  const size_t smem = slab_smem(J, K, assoc);
   const cudaError_t err = allow_smem(event_scan_slab_kernel, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   event_scan_slab_kernel<<<R, kScanThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      rem, tie, mips, npe, pol, blk, ok, t_out, col_out, J, K, assoc);
+      rem, tie, mips, npe, pol, blk, ok, t_out, col_out, J,
+      static_cast<int>(sort_width(J)), K, assoc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,24 +9,32 @@ namespace repro_torch {
 // static reduction scratch the kernels declare).
 constexpr size_t kDefaultSmem = 48 * 1024 - 2 * 32 * sizeof(float);
 
-// Raises a kernel's dynamic shared-memory limit to `smem` when it is
-// above `*allowed`, the limit already set for it (one card per process);
-// refuses what the card cannot give.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
-  if (smem <= *allowed) return cudaSuccess;
+// The most dynamic shared memory a kernel may opt in to on the current
+// card (one card per process), less the static reduction scratch.
+inline cudaError_t smem_limit(size_t* limit) {
   static int max_smem = -1;
-  cudaError_t err;
   if (max_smem < 0) {
     int dev = 0;
-    err = cudaGetDevice(&dev);
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(
         &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
   }
-  if (smem + 2 * 32 * sizeof(float) > static_cast<size_t>(max_smem))
-    return cudaErrorInvalidValue;
+  *limit = static_cast<size_t>(max_smem) - 2 * 32 * sizeof(float);
+  return cudaSuccess;
+}
+
+// Raises a kernel's dynamic shared-memory limit to `smem` when it is
+// above `*allowed`, the limit already set for it; refuses what the card
+// cannot give.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
+  if (smem <= *allowed) return cudaSuccess;
+  size_t limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return err;
+  if (smem > limit) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -40,6 +40,11 @@ The engine's scan is ``event_scan``'s checked form
 table gathered from the slot map, the carried rank checked, and the
 carried or a fresh rank chosen for every row at once, all on the
 device, as the reference's ``_checked_scan(select_free=True)`` does.
+The engine's link scan is ``link_scan``'s engine form
+(:func:`link_scan_tabled_cuda` / :func:`link_scan_tabled_ref`): the tie
+key from the transfer-slot map and, with shared trunks, each trunk's
+occupancy and rate cap, all in the kernel, as the reference engine's
+``_link_scan`` builds them around its kernel.
 On the engine's path the kernels write into a :class:`Scratch` of
 reused outputs and take the engine's tensors without casts or checks.
 
@@ -50,10 +55,11 @@ every kernel module), so a run can show which path it took.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
-from ..core import numerics
+from ..core import network, numerics
 from ._launch import LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: F401
 from ._launch import check as _check
 from ._launch import lib as _lib
@@ -436,6 +442,39 @@ def link_scan_ref(remaining, baud, bg=None, tie=None, cap=None):
     return rate, tmin[:, 0], amin, m[:, 0].to(torch.int32)
 
 
+class LinkRows(NamedTuple):
+    """The per-row inputs of the engine's link scan, [L] each: the link
+    baud and background flows (f32) and, with shared trunks (else None),
+    the row's trunk id (i32, -1 = private) and its trunk's baud and
+    background flows (f32), as ``network.trunk_topology`` gives them."""
+    baud: torch.Tensor
+    bg: torch.Tensor
+    trunk_of: torch.Tensor | None = None
+    trunk_baud: torch.Tensor | None = None
+    trunk_bg: torch.Tensor | None = None
+
+
+def link_scan_tabled_ref(link_gridlet, link_rem, rows):
+    """Plain PyTorch engine link scan: what the reference engine's
+    ``_link_scan`` computes around its kernel.  link_gridlet i32[L, T]
+    (gridlet index, -1 = free slot) gives the tie key (the gridlet
+    index, 2^30 on a free slot); link_rem f32[L, T] the remaining bytes;
+    ``rows`` a :class:`LinkRows`.  With trunks, each row's occupancy is
+    counted as the scan counts m and ``network.trunk_rate_cap`` caps
+    its rate.  Returns :func:`link_scan_ref`'s outputs (one plain
+    ``link_scan`` call)."""
+    tie = torch.where(link_gridlet >= 0, link_gridlet, 2 ** 30).to(
+        torch.float32)
+    cap = None
+    if rows.trunk_of is not None:
+        live = (rows.baud >= TINY) & (rows.baud < BIG)
+        valid = (link_rem >= TINY) & (link_rem < BIG) & live[:, None]
+        occ = valid.to(torch.float32).sum(dim=1)
+        cap = network.trunk_rate_cap(occ, rows.trunk_of, rows.trunk_baud,
+                                     rows.trunk_bg)
+    return link_scan_ref(link_rem, rows.baud, bg=rows.bg, tie=tie, cap=cap)
+
+
 def _frontier_finish(mins, counts, safe):
     n_src = mins.shape[0]
     if n_src == 0:
@@ -488,11 +527,12 @@ class Scratch:
     """The kernel outputs one engine run reuses.  Each layout has two
     sets, handed out in turn: a call's outputs stay intact through the
     next call of that layout and are rewritten by the one after.  The
-    engine reads every result of a scan or a frontier before the call
-    after next (a scan's rank is at most the next scan's carry; a
-    horizon's t_safe lives until the next committing frontier), so it
-    never holds a result that a call rewrites.  A set is its tensors and
-    their data pointers."""
+    engine reads every result of a scan, a link scan or a frontier
+    before the call after next (a scan's rank is at most the next scan's
+    carry; a link scan's rates and forecasts are read only in the
+    superstep that made them; a horizon's t_safe lives until the next
+    committing frontier), so it never holds a result that a call
+    rewrites.  A set is its tensors and their data pointers."""
 
     def __init__(self):
         self._rings = {}
@@ -609,17 +649,39 @@ def event_scan_checked_cuda(row_gridlet, remaining, mips_eff, num_pe,
     return outs[:5]
 
 
+@functools.lru_cache(maxsize=None)
+def event_scan_slab_max_k(j, *, assoc=True):
+    """The largest ``k`` the slab kernel takes at row width ``j`` on this
+    card (the launcher's own shared-memory count): the associative
+    form holds its k + ceil(k/2) (k+1)x(k+1) wave matrices in shared
+    memory beside the row (32 at J = 640), the sequential form only the
+    row (256, the kernel's ceiling, at any J that fits).  0 where the
+    row alone does not fit."""
+    out = _lib().event_scan_slab_max_k(j, int(bool(assoc)))
+    if out < 0:
+        _raise_on(-out, "event_scan_slab")
+    return out
+
+
 def event_scan_slab_cuda(remaining, mips_eff, num_pe, k, tie=None,
                          policy=None, pe_blocked=None, row_ok=None,
                          live=None, *, assoc=True):
     """:func:`event_scan_slab_ref` as one CUDA kernel launch (same
     arguments and outputs, bitwise; the associative form composes in
-    the balanced tree, as ``event_scan_slab_ref(tree=True)`` does)."""
+    the balanced tree, as ``event_scan_slab_ref(tree=True)`` does).
+    ``k`` is at least 1 and at most :func:`event_scan_slab_max_k` at
+    this J and form (sequential: 256; associative: 32 at J = 640), else
+    ``ValueError``; a row too wide for shared memory is refused at
+    launch (``RuntimeError``)."""
     if remaining.device.type != "cuda":
         raise ValueError("event_scan_slab_cuda takes CUDA tensors")
-    if not 1 <= k <= 256:
-        raise ValueError("the slab kernel takes 1 <= k <= 256")
     r, j = remaining.shape
+    # a row too wide for any k (limit 0) is left to the launch to refuse
+    limit = event_scan_slab_max_k(j, assoc=assoc) or 256
+    if not 1 <= k <= limit:
+        form = "associative" if assoc else "sequential"
+        raise ValueError(f"the {form} slab kernel takes 1 <= k <= {limit} "
+                         f"at J = {j} (shared memory), got k = {k}")
     dev = remaining.device
     remaining, tie, policy, pe_blocked, row_ok = _default_inputs(
         remaining, tie, policy, pe_blocked, row_ok)
@@ -647,6 +709,15 @@ def event_scan_slab_cuda(remaining, mips_eff, num_pe, k, tie=None,
     return t_wave, col_wave
 
 
+def _link_outputs(l, t_n, dev):
+    """(rate, t_min, argmin, occupancy) of a link scan."""
+    f32, i32 = torch.float32, torch.int32
+    return (torch.empty((l, t_n), dtype=f32, device=dev),
+            torch.empty((l,), dtype=f32, device=dev),
+            torch.empty((l,), dtype=i32, device=dev),
+            torch.empty((l,), dtype=i32, device=dev))
+
+
 def link_scan_cuda(remaining, baud, bg=None, tie=None, cap=None):
     """:func:`link_scan_ref` as one CUDA kernel launch (same arguments,
     same outputs, bitwise).  ``cap`` None launches the kernel with a
@@ -664,18 +735,53 @@ def link_scan_cuda(remaining, baud, bg=None, tie=None, cap=None):
     for name, v in (("baud", baud), ("bg", bg), ("cap", cap)):
         if v is not None:
             _check(v, name, (l,), f32, dev)
-    rate = torch.empty((l, t_n), dtype=f32, device=dev)
-    tmin = torch.empty((l,), dtype=f32, device=dev)
-    amin = torch.empty((l,), dtype=torch.int32, device=dev)
-    occ = torch.empty((l,), dtype=torch.int32, device=dev)
+    outs = _link_outputs(l, t_n, dev)
     if l:
         err = _lib().link_scan_launch(
-            _ptr(rem), _ptr(tie), _ptr(baud), _ptr(bg), _ptr(cap),
-            _ptr(rate), _ptr(tmin), _ptr(amin), _ptr(occ), l, t_n,
+            _ptr(rem), _ptr(tie), None, _ptr(baud), _ptr(bg), _ptr(cap),
+            None, None, None, *(_ptr(t) for t in outs), l, t_n,
             _stream(dev))
         _raise_on(err, "link_scan")
         LAUNCHES["link_scan"] += 1
-    return rate, tmin, amin, occ
+    return outs
+
+
+def link_scan_tabled_cuda(link_gridlet, link_rem, rows, *, scratch=None):
+    """:func:`link_scan_tabled_ref` as one kernel launch: the tie key
+    read from the slot map and, with trunks, every trunk's occupancy and
+    cap computed in the kernel (no host read); the same outputs bitwise.
+    With ``scratch`` (an engine run's :class:`Scratch`) the inputs are
+    taken as the engine makes them, unchecked, and the outputs are the
+    scratch's; without it every input is checked and the outputs are
+    new."""
+    if link_rem.device.type != "cuda":
+        raise ValueError("link_scan_tabled_cuda takes CUDA tensors")
+    l, t_n = link_rem.shape
+    dev = link_rem.device
+    if scratch is None:
+        f32 = torch.float32
+        _check(link_gridlet, "link_gridlet", (l, t_n), torch.int32, dev)
+        _check(link_rem, "link_rem", (l, t_n), f32, dev)
+        for name, v, dtype in zip(LinkRows._fields, rows,
+                                  (f32, f32, torch.int32, f32, f32)):
+            if v is not None:
+                _check(v, name, (l,), dtype, dev)
+        outs = _link_outputs(l, t_n, dev)
+        out_ptrs = tuple(t.data_ptr() for t in outs)
+    else:
+        outs, out_ptrs = scratch.take(("link_scan", l, t_n),
+                                      lambda: _link_outputs(l, t_n, dev))
+    if l:
+        trunks = ((None,) * 3 if rows.trunk_of is None else
+                  (rows.trunk_of.data_ptr(), rows.trunk_baud.data_ptr(),
+                   rows.trunk_bg.data_ptr()))
+        err = _lib().link_scan_launch(
+            link_rem.data_ptr(), None, link_gridlet.data_ptr(),
+            rows.baud.data_ptr(), rows.bg.data_ptr(), None, *trunks,
+            *out_ptrs, l, t_n, _stream(dev))
+        _raise_on(err, "link_scan")
+        LAUNCHES["link_scan"] += 1
+    return outs
 
 
 @functools.lru_cache(maxsize=64)

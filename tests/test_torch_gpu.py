@@ -167,17 +167,30 @@ def _check_refused_launch(cuda):
                          torch.ones((1, s, n), device=cuda), chunk=s)
 
 
-def _check_slab(r, j, cuda):
+def _check_slab(r, j, cuda, ks=(1, 4, 8)):
+    """Both forms, with and without the live gate, on the random table
+    and on one of whole-number remaining values (many equal, ranked by
+    the tie key); with ``ks`` None, k at the associative form's limit
+    at this J, and one above it refused."""
     rem, tie, mips, npe, pol, blk, ok = _scan_case(r, j, r + j, cuda)
     kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok)
-    for k in (1, 4, 8):
-        for assoc in (True, False):
-            for live in (None, torch.tensor(False, device=cuda)):
-                want = ek.event_scan_slab_ref(rem, mips, npe, k, live=live,
-                                              assoc=assoc, tree=True, **kw)
-                got = ek.event_scan_slab_cuda(rem, mips, npe, k, live=live,
-                                              assoc=assoc, **kw)
-                assert all(_bits_equal(a, b) for a, b in zip(want, got))
+    if ks is None:
+        limit = ek.event_scan_slab_max_k(j)
+        assert 1 <= limit < 256
+        with pytest.raises(ValueError, match=f"k <= {limit} "):
+            ek.event_scan_slab_cuda(rem, mips, npe, limit + 1, **kw)
+        ks = (limit,)
+    for table in (rem, torch.floor(rem / 100.0)):
+        for k in ks:
+            for assoc in (True, False):
+                for live in (None, torch.tensor(False, device=cuda)):
+                    want = ek.event_scan_slab_ref(table, mips, npe, k,
+                                                  live=live, assoc=assoc,
+                                                  tree=True, **kw)
+                    got = ek.event_scan_slab_cuda(table, mips, npe, k,
+                                                  live=live, assoc=assoc,
+                                                  **kw)
+                    assert all(_bits_equal(a, b) for a, b in zip(want, got))
 
 
 def _close(got, want, tol):
@@ -278,11 +291,39 @@ def _link_case(l, t, seed, dev):
 
 
 def _check_link_scan(l, t, cuda):
+    """The public forms, also with tie keys that tie at t_min in every
+    way the two-stage argmin tells apart (-0 and +0, BIG, above BIG,
+    +-inf); then the engine form (tie key from a slot map, trunk caps
+    computed in the kernel: rows in two trunks, private rows, the dead
+    rows of ``_link_case`` inside trunks) with and without trunks, fresh
+    outputs and twice through one Scratch (both output sets)."""
     rem, baud, bg, tie, cap = _link_case(l, t, l * t, cuda)
+    g = torch.Generator().manual_seed(l + t)
+    keys = torch.tensor([0.0, -0.0, 1.0, 3.0e38, 3.2e38, float("inf"),
+                         -float("inf"), 2.0 ** 30])
+    odd = keys[torch.randint(0, len(keys), (l, t), generator=g)].to(cuda)
     for c in (None, cap):
-        want = ek.link_scan_ref(rem, baud, bg=bg, tie=tie, cap=c)
-        got = ek.link_scan_cuda(rem, baud, bg=bg, tie=tie, cap=c)
-        assert all(_bits_equal(a, b) for a, b in zip(want, got))
+        for ties in (tie, odd):
+            want = ek.link_scan_ref(rem, baud, bg=bg, tie=ties, cap=c)
+            got = ek.link_scan_cuda(rem, baud, bg=bg, tie=ties, cap=c)
+            assert all(_bits_equal(a, b) for a, b in zip(want, got))
+    ids = torch.randperm(2 * l * t, generator=g)[:l * t].reshape(l, t)
+    lg = torch.where(rem.cpu() > 0, ids, -1).to(torch.int32).to(cuda)
+    trunk_of = torch.tensor([i % 3 - 1 for i in range(l)], dtype=torch.int32)
+    trunk_of[0] = 0
+    trunk_baud = torch.where(trunk_of == 0, 3e3, 5e4)
+    trunk_bg = torch.where(trunk_of == 0, 1.0, 0.5)
+    trunks = tuple(x.to(cuda) for x in (trunk_of, trunk_baud, trunk_bg))
+    scratch = ek.Scratch()
+    for topology in ((), trunks):
+        rows = ek.LinkRows(baud, bg, *topology)
+        want = ek.link_scan_tabled_ref(lg, rem, rows)
+        got = [ek.link_scan_tabled_cuda(lg, rem, rows)]
+        got += [ek.link_scan_tabled_cuda(lg, rem, rows, scratch=scratch)
+                for _ in range(2)]
+        assert got[1][0].data_ptr() != got[2][0].data_ptr()
+        for out in got:
+            assert all(_bits_equal(a, b) for a, b in zip(want, out))
 
 
 def _check_card_tensors_never_reach_the_plain_versions(cuda):
@@ -308,8 +349,9 @@ def test_kernels_match_plain_on_the_card(cuda):
     and injected-rank forms, also on tie-heavy tables, and in its
     checked form with the carry kept, its flag off and failing in one
     row; the one-launch frontier; link_scan with and without the trunk
-    cap; the slab in both forms with and without the live gate -- all
-    bitwise; ssd_scan and f32 flash_attention at the reference's
+    cap, and its engine form with and without trunks; the slab in both
+    forms with and without the live gate, also at the associative
+    form's k limit -- all bitwise; ssd_scan and f32 flash_attention at the reference's
     tolerances, bf16 flash_attention per query row), refused launches,
     and the router sending card tensors only to the kernels."""
     for r, j in ((8, 1), (16, 32), (16, 640), (8, 2000), (3, 3000)):
@@ -324,8 +366,9 @@ def test_kernels_match_plain_on_the_card(cuda):
         _check_event_frontier(sizes, cuda)
     for l, t in ((8, 1), (16, 32), (16, 640), (8, 2000), (6, 3000)):
         _check_link_scan(l, t, cuda)
-    for r, j in ((8, 1), (8, 12), (16, 640), (3, 2000)):
+    for r, j in ((8, 1), (8, 12), (16, 640), (3, 2000), (16, 500)):
         _check_slab(r, j, cuda)
+    _check_slab(16, 640, cuda, ks=None)
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((1, 32, 4, 8, 16, 8), (2, 64, 8, 16, 32, 16),
                       (1, 512, 2, 64, 128, 256), (1, 100, 3, 24, 40, 50)):

@@ -7,6 +7,7 @@ and the reference's oracles within the reference's own kernel-vs-oracle
 tolerances.  The CUDA kernels themselves run only on a card:
 tests/test_torch_gpu.py and chip_smoke.py."""
 import gc
+import types
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +16,11 @@ import pytest
 import torch
 
 from repro.core import engine as jax_engine
+from repro.core import network as jax_network
 from repro.kernels import event_scan as jax_event
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.core import engine as torch_engine
 from repro_torch.kernels import _build
 from repro_torch.kernels import event_scan as ek
 from repro_torch.kernels import flash_attention as fk
@@ -246,14 +249,86 @@ def _link_case(l, t, seed):
     return rem, baud, bg, tie, cap
 
 
+def _check_link_scan_tabled(rem, baud, bg, seed):
+    """The engine form's plain version (tie key from a slot map; with
+    trunks, each trunk's occupancy and cap) against the reference: the
+    JAX engine's own ``_link_scan``, and its composition spelled out --
+    ``network.trunk_rate_cap`` over the live-row occupancy, then
+    ``link_scan_xla``.  The last two rows are the engine's padding (no
+    transfer); the trunk topology has a live private row (0), dead rows
+    inside trunks (2-4, from ``_link_case``) and an empty one (1)."""
+    l, t = rem.shape
+    n = l - 2
+    rem = rem.copy()
+    rem[n:] = 0.0
+    rng = np.random.RandomState(seed)
+    ids = rng.permutation(2 * l * t)[:l * t].reshape(l, t)
+    lg = np.where(rem > 0, ids, -1).astype(np.int32)
+    trunk_of = np.array([-1, 0, 0, 1, 1, 0] + [i % 3 - 1 for i in
+                                               range(6, n)], np.int32)
+    trunks = [np.asarray(x) for x in jax_network.trunk_topology(
+        trunk_of, n, trunk_baud=[3e3, 5e4], trunk_bg=[1.0, 0.5])]
+    pad = [(0, 2)]
+    for topology in (None, trunks):
+        # the reference engine's wrapper, on its own state and params
+        params = types.SimpleNamespace(
+            link_baud=baud[:n], bg_flows=bg[:n],
+            **dict(zip(("trunk_of", "trunk_baud", "trunk_bg"),
+                       topology or (None,) * 3)))
+        want = jax_engine._link_scan(
+            types.SimpleNamespace(link_gridlet=jnp.asarray(lg),
+                                  link_rem=jnp.asarray(rem)),
+            params, n, l)
+        # the same, composed by hand
+        baud_p = np.pad(baud[:n], (0, 2), constant_values=1.0)
+        bg_p = np.pad(bg[:n], (0, 2))
+        cap = None
+        if topology is not None:
+            live = (baud_p > 0.0) & (baud_p < 3.0e38)
+            valid = (rem > 0.0) & (rem < 3.0e38) & live[:, None]
+            cap = jax_network.trunk_rate_cap(
+                jnp.sum(jnp.asarray(valid, jnp.float32), axis=1),
+                np.pad(topology[0], pad, constant_values=-1),
+                np.pad(topology[1], pad, constant_values=1.0),
+                np.pad(topology[2], pad))
+        tie = np.where(lg >= 0, lg, 2 ** 30).astype(np.float32)
+        spelled = jax_event.link_scan_xla(rem, baud_p, bg=bg_p, tie=tie,
+                                          cap=cap)
+        # the port: the engine's padded rows, then the plain engine form
+        state = types.SimpleNamespace(
+            t=torch.zeros(()), link_gridlet=torch.from_numpy(lg),
+            link_rem=torch.from_numpy(rem),
+            host=torch_engine.HostCounts(
+                n_reseeds=torch.zeros((), dtype=torch.int32)))
+        tparams = types.SimpleNamespace(
+            **{k: None if v is None else torch.from_numpy(np.array(v))
+               for k, v in vars(params).items()})
+        rows = torch_engine._link_rows(state, tparams, n, l)
+        port = ek.link_scan_tabled_ref(state.link_gridlet, state.link_rem,
+                                       rows)
+        names = ("rate", "t_min", "argmin", "occ")
+        _assert_bitwise(port, want, names)
+        _assert_bitwise(port, spelled, names)
+        _assert_bitwise(torch_engine._link_scan(state, tparams, n, l), want,
+                        names)
+        if topology is not None:     # the trunk cap binds somewhere
+            private = ek.link_scan_tabled_ref(
+                state.link_gridlet, state.link_rem, rows._replace(
+                    trunk_of=None, trunk_baud=None, trunk_bg=None))
+            assert not torch.equal(port[0], private[0])
+
+
 def test_link_scan_plain_matches_pallas_and_xla():
     """``link_scan_ref`` against the reference router (jitted XLA), the
     eager ``link_scan_xla`` and the Pallas kernel in interpret mode,
-    with and without the trunk cap, at T in {5, 12, 130}; then the
+    with and without the trunk cap, at T in {5, 12, 130}, and the engine
+    form's plain version (``link_scan_tabled_ref``) against the
+    reference engine's link scan, with and without trunks; then the
     default tie and background inputs."""
     names = ("rate", "t_min", "argmin", "occ")
     for l, t, seed in ((8, 5, 0), (8, 12, 1), (16, 130, 3)):
         rem, baud, bg, tie, cap = _link_case(l, t, seed)
+        _check_link_scan_tabled(rem, baud, bg, seed)
         for c in (None, cap):
             port = ops.link_scan(
                 torch.from_numpy(rem), torch.from_numpy(baud),
@@ -279,6 +354,7 @@ def test_link_scan_plain_matches_pallas_and_xla():
     _assert_bitwise(ops.link_scan(torch.from_numpy(rem),
                                   torch.from_numpy(baud)),
                     jax_ops.link_scan(rem, baud), names)
+    jax.clear_caches()
 
 
 def _frontier_case(sizes, seed):
@@ -464,6 +540,10 @@ def test_cpu_tensors_route_to_plain_versions():
             torch.zeros((), dtype=torch.int32))
     with pytest.raises(ValueError):
         ek.link_scan_cuda(torch.ones(8, 4), torch.ones(8))
+    with pytest.raises(ValueError):
+        ek.link_scan_tabled_cuda(torch.zeros((8, 4), dtype=torch.int32),
+                                 torch.ones(8, 4),
+                                 ek.LinkRows(torch.ones(8), torch.zeros(8)))
     with pytest.raises(ValueError):
         ek.event_scan_slab_cuda(torch.ones(8, 4), torch.ones(8),
                                 torch.ones(8), 2)
