@@ -8,9 +8,10 @@ Phases (any failure exits non-zero before the result line):
 2. build    -- nvcc builds the kernels from src/repro_torch/kernels/csrc;
                each kernel's registers and spill bytes from ptxas, and
                its tensor-core instructions
-               (HGMMA, HMMA) from cuobjdump's SASS: a bf16 flash instance
-               or an SSD pass that multiplies matrices (states, output)
-               fails if it spills or has no tensor-core instruction;
+               (HGMMA, HMMA) from cuobjdump's SASS: a flash instance
+               (bf16 or f32, one of each a head dim) or an SSD pass that
+               multiplies matrices (states, output) fails if it spills or
+               has no tensor-core instruction;
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                bitwise, at the engine's shapes: event_scan's fresh rank
                (a sort) and injected rank, also on tables of many equal
@@ -35,10 +36,13 @@ Phases (any failure exits non-zero before the result line):
                cells print host syncs and link_scan launches per superstep;
 5. kernel API -- ``repro_torch.kernels.ops.{event_scan_slab, ssd_scan,
                flash_attention}`` on the card at published widths (the
-               20u_100j / 4u_512j / fleet-scale job tables; mamba2-130m
-               and zamba2-1.2b SSD layers; qwen2-7b, gemma2-27b and
-               gemma3-1b attention layers), counts zeroed just before and
-               read just after: each launched once per call, no plain
+               20u_100j / 4u_512j / fleet-scale job tables, and at
+               [16, 640] the slab also at k 33 and 64 (associative: wave
+               matrices in a workspace) and 257 and 640 (sequential);
+               mamba2-130m and zamba2-1.2b SSD layers; qwen2-7b,
+               gemma2-27b and gemma3-1b attention layers, bf16 and f32),
+               counts zeroed just before and read just after: each
+               launched once per call, no plain
                version; then each output against its plain version (the
                slab bitwise, SSD and f32 attention at the reference's
                kernel-vs-oracle tolerances, bf16 attention per query
@@ -57,7 +61,7 @@ Phases (any failure exits non-zero before the result line):
                that call's time; link_scan also in its engine form and as
                the engine's ``_link_scan`` call on the network cells' own
                rows (its kernels a call); the slab at every SLAB_SHAPES
-               entry;
+               entry and at SLAB_WIDE's k;
 7. profile  -- the first WINDOW supersteps of 20u_100j, 20u_100j_net and
                20u_100j_trunknet under the profiler: device busy time,
                idle share, kernel launches, link_scan launches and host
@@ -69,7 +73,8 @@ Prints a ``{"kernels": [...]}`` line, then the result line
 
     python3 chip_smoke.py --compare
 
-runs only the card line, the engine's ``_link_scan`` call times and the
+runs only the card line, the engine's ``_link_scan`` call times, the f32
+attention kernel's device times at the f32 FLASH_CASES shapes and the
 profile windows, with no check and no result line: those use only what
 earlier trees of the port also have, so a copy of this script beside an
 earlier tree's ``src`` measures that tree the same way.
@@ -117,6 +122,11 @@ WINDOW = 300          # supersteps of the main path under the profiler
 # widths (src/repro/configs).
 SLAB_SHAPES = ((16, 640), (8, 640), (256, 128))
 SLAB_KS = (1, 4, 8)
+# at [16, 640]: k at the associative form's shared-memory limit (32 at
+# J = 640, its largest shared layout), past it (its wave matrices in a
+# workspace) and past the sequential form's old cap
+SLAB_WIDE = ((32, True), (33, True), (64, True), (257, False),
+             (640, False))
 BF16, F32 = torch.bfloat16, torch.float32
 SSD_CASES = (("mamba2-130m", 2, 4096, 24, 64, 128, 256, BF16, "test"),
              ("zamba2-1.2b", 2, 4096, 64, 64, 64, 256, BF16, "test"),
@@ -129,7 +139,10 @@ FLASH_CASES = (("qwen2-7b", 1, 28, 4, 4096, 128, True, 0, 0.0, BF16),
                ("gemma3-1b local", 1, 4, 1, 4096, 256, True, 512, 0.0, BF16),
                ("qwen2-7b bidirectional", 1, 28, 4, 2048, 128, False, 0,
                 0.0, BF16),
-               ("qwen2-7b", 1, 28, 4, 4096, 128, True, 0, 0.0, F32))
+               ("qwen2-7b", 1, 28, 4, 4096, 128, True, 0, 0.0, F32),
+               ("gemma2-27b local", 1, 32, 16, 8192, 128, True, 4096, 50.0,
+                F32),
+               ("gemma3-1b local", 1, 4, 1, 4096, 256, True, 512, 0.0, F32))
 SSD_TOL = {BF16: 5e-2, F32: 5e-4}     # tests/test_kernels.py:87
 # tests/test_kernels.py:47; bf16 is held per query row (row_rel_err)
 FLASH_TOL = {BF16: 2e-2, F32: 2e-5}
@@ -178,10 +191,10 @@ def instance(mangled):
                   r"event_scan_slab)_kernel", mangled)
     if m is not None:
         return m.group(0)
-    m = re.search(r"flash_kernel(_wgmma)?ILi(\d+)E", mangled)
+    m = re.search(r"flash_kernel_(wgmma|tf32)ILi(\d+)E", mangled)
     if m is not None:
-        return (f"flash_attention {'bf16' if m.group(1) else 'f32'} "
-                f"d={m.group(2)}")
+        dtype = "bf16" if m.group(1) == "wgmma" else "f32"
+        return f"flash_attention {dtype} d={m.group(2)}"
     m = re.search(r"ssd_(states|pass|output)_kernel(I(f|13__nv_bfloat16)E)?",
                   mangled)
     if m is not None:
@@ -235,9 +248,10 @@ def tensor_core_ops(lib, cuobjdump):
 
 def check_kernel_build(failures):
     """Registers and spills (ptxas) and tensor-core instructions
-    (cuobjdump) of every kernel (event_scan.cu's too); the bf16
-    flash instances and the SSD passes that multiply matrices must have
-    no spill and at least one tensor-core instruction."""
+    (cuobjdump) of every kernel (event_scan.cu's too); the flash
+    instances (bf16 and f32, one of each a head dim) and the SSD passes
+    that multiply matrices must have no spill and at least one
+    tensor-core instruction."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fk
     regs = ptxas_report(_build.log_path().read_text())
@@ -248,17 +262,18 @@ def check_kernel_build(failures):
         ops = mma.get(name, {})
         print(f"{name}: {n_reg} registers, {spill} bytes spilled, SASS "
               f"{ops}", flush=True)
-        if (name.startswith("flash_attention bf16") or
+        if (name.startswith("flash_attention") or
                 name.split()[:2] in (["ssd_scan", p] for p in SSD_PRODUCTS)):
             if spill != 0:
                 failures.append(f"{name}: ptxas reports {spill} spill bytes")
             if not ops.get("HGMMA") and not ops.get("HMMA"):
                 failures.append(f"{name}: no tensor-core instruction in "
                                 f"its SASS")
-    n_flash = sum(n.startswith("flash_attention bf16") for n in mma)
-    if n_flash != len(fk.HEAD_DIMS):
-        failures.append(f"flash_attention: {n_flash} bf16 instances in the "
-                        f"SASS, expected {len(fk.HEAD_DIMS)}")
+    for dtype in ("bf16", "f32"):
+        n_flash = sum(n.startswith(f"flash_attention {dtype}") for n in mma)
+        if n_flash != len(fk.HEAD_DIMS):
+            failures.append(f"flash_attention: {n_flash} {dtype} instances "
+                            f"in the SASS, expected {len(fk.HEAD_DIMS)}")
     n_ssd = sum(n.startswith("ssd_scan") for n in mma)
     if n_ssd != 2 * len(SSD_PRODUCTS) + 1:
         failures.append(f"ssd_scan: {n_ssd} kernels in the SASS, expected "
@@ -321,6 +336,22 @@ def tie_heavy(rem, tie, ok):
     ok = ok.clone()
     ok[1] = 0.0
     return rem, tie, ok
+
+
+def slab_ops(args, k):
+    """The slab's own operations at k on this table: a sort of each row,
+    then, over the row's m = min(k, occupied) heads, a quotient and a sum
+    a wave and the advance of every later head (share, product, clamp:
+    ~8 operations), 2 m + 8 m (m - 1) / 2.  Both forms give the same
+    results, so this least count bounds the associative form too."""
+    from repro_torch.kernels import event_scan as ek
+    rem, _, _, npe, pol, blk, ok = args
+    r, j = rem.shape
+    _, valid, _ = ek._row_masks(rem, npe[:, None], pol[:, None],
+                                blk[:, None], ok[:, None])
+    m = valid.sum(dim=1).clamp(max=k).to(torch.int64)
+    return (r * j * int(np.ceil(np.log2(j))) +
+            int((2 * m + 4 * m * (m - 1)).sum()))
 
 
 def checked_inputs(r, j, gen, dev):
@@ -641,6 +672,19 @@ def kernel_api(dev, failures):
                                      pe_blocked=blk, row_ok=ok,
                                      live=lives[live], assoc=assoc)))
                     calls["event_scan_slab"] += 1
+    rem, tie, mips, npe, pol, blk, ok = slab_in[SLAB_SHAPES[0]]
+    limit = ek.event_scan_slab_max_k(SLAB_SHAPES[0][1])
+    if limit != SLAB_WIDE[0][0]:
+        failures.append(f"event_scan_slab: the associative limit at J = "
+                        f"{SLAB_SHAPES[0][1]} is {limit}, SLAB_WIDE holds "
+                        f"{SLAB_WIDE[0][0]}")
+    for k, assoc in SLAB_WIDE:
+        outs.append(("event_scan_slab", (SLAB_SHAPES[0], k, assoc, True),
+                     ops.event_scan_slab(rem, mips, npe, k, tie=tie,
+                                         policy=pol, pe_blocked=blk,
+                                         row_ok=ok, live=lives[True],
+                                         assoc=assoc)))
+        calls["event_scan_slab"] += 1
     for case, args in zip(SSD_CASES, ssd_in):
         outs.append(("ssd_scan", case, ops.ssd_scan(*args, chunk=case[6])))
         calls["ssd_scan"] += 1
@@ -855,14 +899,33 @@ def windows(cells, dev):
     ek.reset_counts()
 
 
+def f32_attention_times(dev):
+    """Device ms per call of the f32 attention kernel at every f32
+    FLASH_CASES shape."""
+    from repro_torch.kernels import flash_attention as fk
+    dgen = torch.Generator(device=dev).manual_seed(14)
+    for case in FLASH_CASES:
+        if case[9] != F32:
+            continue
+        q, k, v = flash_inputs(*case[1:6], F32, dgen, dev)
+        kw = dict(causal=case[6], window=case[7], cap=case[8])
+        ms, _ = device_ms(lambda: fk.flash_attention_cuda(q, k, v, **kw),
+                          kernels=KERNEL_NAME["flash_attention"], reps=10)
+        print(f"flash_attention {case[0]} float32: {ms} ms device per call",
+              flush=True)
+
+
 def compare(dev):
-    """``--compare``: the card line, the engine's link-scan call and the
-    profile windows of the tree beside this script."""
+    """``--compare``: the card line, the engine's link-scan call, the f32
+    attention kernel's times and the profile windows of the tree beside
+    this script."""
     phase("card")
     print(card_line(), flush=True)
     cells = load_cells(dev)
     phase("the engine's link scan call")
     engine_link_calls(cells, torch.Generator().manual_seed(20), dev)
+    phase("f32 attention")
+    f32_attention_times(dev)
     windows(cells, dev)
     return 0
 
@@ -1194,10 +1257,7 @@ def main():
     for sr, sj in SLAB_SHAPES:
         srem, stie, smips, snpe, spol, sblk, sok = slab_in[(sr, sj)]
         skw = dict(tie=stie, policy=spol, pe_blocked=sblk, row_ok=sok)
-        # the function's own work: a sort per row, then k waves over the
-        # row (share, quotient and advance of every slot: ~8 operations)
-        slab_ops = (sr * sj * int(np.ceil(np.log2(sj))) +
-                    k_slab * sr * sj * 8)
+        n_ops = slab_ops(slab_in[(sr, sj)], k_slab)
         slab_bytes = (2 * sr * sj + 5 * sr) * f4 + sr * k_slab * 8
         where = "" if (sr, sj) == SLAB_SHAPES[0] else f" [{sr},{sj}]"
         for assoc in (True, False):
@@ -1210,7 +1270,22 @@ def main():
                 lambda a=assoc, x=(srem, smips, snpe), kw=skw:
                     ek.event_scan_slab_ref(*x, k_slab, assoc=a, tree=True,
                                            **kw),
-                None, slab_bytes, slab_ops, F32_OPS_PER_S, 200, 20))
+                None, slab_bytes, n_ops, F32_OPS_PER_S, 200, 20, ""))
+    srem, stie, smips, snpe, spol, sblk, sok = slab_in[SLAB_SHAPES[0]]
+    sr, sj = SLAB_SHAPES[0]
+    skw = dict(tie=stie, policy=spol, pe_blocked=sblk, row_ok=sok)
+    for k_w, assoc in SLAB_WIDE:
+        timed.append((
+            "event_scan_slab",
+            f"{'assoc' if assoc else 'sequential'} k={k_w}",
+            f"[{sr},{sj}] k={k_w}",
+            lambda a=assoc, k_=k_w: ek.event_scan_slab_cuda(
+                srem, smips, snpe, k_, assoc=a, **skw),
+            lambda a=assoc, k_=k_w: ek.event_scan_slab_ref(
+                srem, smips, snpe, k_, assoc=a, tree=True, **skw),
+            None, (2 * sr * sj + 5 * sr) * f4 + sr * k_w * 8,
+            slab_ops(slab_in[SLAB_SHAPES[0]], k_w), F32_OPS_PER_S, 20, 3,
+            ""))
     for case, args in zip(SSD_CASES, ssd_in):
         _, b, s_, h, p_, n, q_, dt_, draws = case
         pq = q_ * (q_ + 1) // 2       # causal (query, key) pairs a chunk
@@ -1227,12 +1302,20 @@ def main():
             f"B {b} S {s_} H {h} P {p_} N {n} chunk {q_}",
             lambda a=args, c=q_: sk.ssd_scan_cuda(*a, chunk=c),
             lambda a=args, c=q_: sk.ssd_scan_ref(*a, chunk=c),
-            None, nbytes, ops_, peak, 10, 10))
+            None, nbytes, ops_, peak, 10, 10, ""))
     for case, (q, k, v) in zip(FLASH_CASES, flash_in):
         _, b, hq, hkv, s_, d, causal, window, cap, dt_ = case
         kw = dict(causal=causal, window=window, cap=cap)
         ops_ = 4 * b * hq * attended_pairs(s_, s_, causal, window) * d
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        # f32: the least time for the products at f32 accuracy is three
+        # TF32 products each on the tensor cores; the same flops on the
+        # FP32 pipes are printed beside it
+        n_ops, peak, note = ops_, BF16_OPS_PER_S, ""
+        if dt_ == F32:
+            n_ops, peak = 3 * ops_, TF32_OPS_PER_S
+            note = (f"; f32 bound {ops_ / F32_OPS_PER_S * 1e3:.7f} ms "
+                    f"({ops_} ops at {F32_OPS_PER_S:.3g}/s)")
         timed.append((
             "flash_attention", f"{case[0]} {str(dt_)[6:]}",
             f"B {b} Hq {hq} Hkv {hkv} S {s_} d {d} causal {causal} "
@@ -1242,10 +1325,9 @@ def main():
             lambda q=q, k=k, v=v, kw=kw: fk.flash_attention_ref(q, k, v,
                                                                 **kw),
             None if cap else library_attention(q, k, v, causal, window),
-            nbytes, ops_,
-            BF16_OPS_PER_S if dt_ == BF16 else F32_OPS_PER_S, 10, 10))
+            nbytes, n_ops, peak, 10, 10, note))
     for (name, form, shape, fn, plain_fn, lib_fn, nbytes, n_ops, peak,
-         reps, plain_reps) in timed:
+         reps, plain_reps, note) in timed:
         call_ms = time_ms(fn, reps=reps, warm=min(reps, 10))
         ms, per = device_ms(fn, kernels=KERNEL_NAME[name], reps=reps)
         if ms is None:
@@ -1266,7 +1348,7 @@ def main():
               f"({call_ms:.5f} ms per call, CUDA events), plain "
               f"{plain_ms:.5f} ms per call, bound {bound_ms:.7f} ms ({by}: "
               f"{nbytes} B, {n_ops} "
-              f"ops at {peak:.3g}/s), library call: "
+              f"ops at {peak:.3g}/s{note}), library call: "
               f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}",
               flush=True)
         rows.append((name, form, ms, plain_ms, bound_ms, by, call_ms, None,

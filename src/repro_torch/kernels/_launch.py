@@ -36,8 +36,8 @@ _SIGNATURES = {
     "event_scan_checked_launch": [P, P, I] + [P] * 14 + [I, I, P],
     "event_frontier_launch": [P, P, P, I, I] + [P] * 6,
     "link_scan_launch": [P] * 13 + [I, I, P],
-    "event_scan_slab_launch": [P] * 9 + [I, I, I, I, P],
-    "event_scan_slab_max_k": [I, I],
+    "event_scan_slab_launch": [P] * 10 + [I, I, I, I, P],
+    "event_scan_slab_max_k": [I],
     "ssd_scan_launch": [P] * 8 + [I] * 7 + [P],
     "ssd_scan_blocks": [I] * 6 + [P],
     "flash_attention_launch": [P] * 4 + [I] * 8 + [F, F, P],

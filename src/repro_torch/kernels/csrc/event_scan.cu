@@ -135,8 +135,12 @@
 //   +0, as XLA:CPU compiles `_mats_mul`), then clamps and sums the last
 //   column with XLA's tile-16 cumsum.  The Fig 8 share of rank p in wave
 //   w is `Fig8Row(g - w).rate(p - w)`, the same code event_scan runs.
-//   The matrices bound k by shared memory (`slab_smem`): 32 at J = 640
-//   for assoc=1, 256 for assoc=0; `event_scan_slab_max_k` answers it.
+//   Every k >= 1 the reference takes: a row has at most J heads, so the
+//   sequential form keeps min(k, J) of them beside the row whatever k
+//   is; the associative form keeps its k + ceil(k/2) matrices in shared
+//   memory up to `event_scan_slab_max_k` (32 at J = 640) and above it in
+//   a global workspace the wrapper allocates (the same tree, the same
+//   FMA chains, so the same bits).
 //
 // Every quotient and product uses the _rn intrinsics: IEEE f32, never
 // contracted, matching the reference's `mips / max(divisor, 1)` and
@@ -848,10 +852,129 @@ event_frontier_kernel(const float* __restrict__ cand,
   }
 }
 
+// `_wave_matrices`, entry (i, l) of wave matrix p: the identity but for
+// row p = (-A[v,p]/d for v < p, 0, srem_p/d), d = max(A[p,p], 1e-30),
+// clipped to +-BIG.  A[w,p] is the wave-w share of rank p: nonzero iff
+// w <= p < occ.
+__device__ __forceinline__ float slab_wave(int p, int i, int l, int K,
+                                           int occ, float g,
+                                           const RowMask& rm, float mips_r,
+                                           const float* hrem) {
+  float val = i == l ? 1.0f : 0.0f;
+  if (i == p) {
+    const float a_pp =
+        p < occ ? Fig8Row(__fsub_rn(g, static_cast<float>(p)), rm.npe_e,
+                          rm.pol, mips_r).rate(0.0f)
+                : 0.0f;
+    const float d = fmaxf(a_pp, 1e-30f);
+    if (l == K) {
+      val = __fdiv_rn(p < occ ? hrem[p] : 0.0f, d);
+    } else if (l < p) {
+      const float a_lp =
+          p < occ ? Fig8Row(__fsub_rn(g, static_cast<float>(l)), rm.npe_e,
+                            rm.pol, mips_r).rate(static_cast<float>(p - l))
+                  : 0.0f;
+      val = __fdiv_rn(-a_lp, d);
+    } else {
+      val = 0.0f;
+    }
+    val = val < -kBig ? -kBig : (val > kBig ? kBig : val);
+  }
+  return val;
+}
+
+// The Pallas body's balanced tree composes pairs (a, b) -> b @ a, an odd
+// level padded with the identity; each entry an FMA chain over the inner
+// index from +0.  Entry (i, l) of pair pr of the level of n (M x M)
+// matrices at src.
+__device__ __forceinline__ float slab_compose(const float* src, int n,
+                                              int pr, int i, int l, int M) {
+  const size_t mm = static_cast<size_t>(M) * M;
+  const float* a = src + 2 * pr * mm;
+  const bool pad = 2 * pr + 1 >= n;
+  const float* b = a + mm;
+  float acc = 0.0f;
+  for (int jj = 0; jj < M; ++jj) {
+    const float bv = pad ? (i == jj ? 1.0f : 0.0f) : b[i * M + jj];
+    acc = fmaf(bv, a[jj * M + l], acc);
+  }
+  return acc;
+}
+
+// The block's threads striding over the entries of matrices of MM
+// entries each, all at once: this thread's matrix p and entry x, stepped
+// without a division (a 64-bit divide an entry costs the workspace's
+// compose steps more than half again).
+struct EntryWalk {
+  int p, x;
+  const int sp, sx, MM;
+  __device__ explicit EntryWalk(int mm)
+      : p(threadIdx.x / mm), x(threadIdx.x % mm), sp(blockDim.x / mm),
+        sx(blockDim.x % mm), MM(mm) {}
+  __device__ size_t at() const { return static_cast<size_t>(p) * MM + x; }
+  __device__ void next() {
+    p += sp;
+    x += sx;
+    if (x >= MM) {
+      x -= MM;
+      ++p;
+    }
+  }
+};
+
+// `_slab_waves_assoc(tree=True)` for one row: the K wave matrices in
+// bank_a [K][M][M] (M = K + 1), composed in the balanced tree through
+// bank_b [ceil(K/2)][M][M] right after it, then the composite's last
+// column clamped and summed with XLA:CPU's cumsum into the row's
+// outputs.  The banks are in shared memory or, past the shared-memory
+// limit, in the workspace; each call site passes its own bank, so the
+// compiler keeps shared pointers in the shared space.
+__device__ __forceinline__ void slab_assoc(float* bank_a, int K, int J,
+                                           int occ, float g,
+                                           const RowMask& rm, float mips_r,
+                                           const float* hrem,
+                                           const int* hcol, float* t_row,
+                                           int* c_row) {
+  const int M = K + 1, MM = M * M;
+  for (EntryWalk e(MM); e.p < K; e.next())
+    bank_a[e.at()] = slab_wave(e.p, e.x / M, e.x % M, K, occ, g, rm, mips_r,
+                               hrem);
+  __syncthreads();
+  float* src = bank_a;
+  float* dst = bank_a + static_cast<size_t>(K) * MM;
+  for (int n = K; n > 1; n = (n + 1) / 2) {
+    for (EntryWalk e(MM); e.p < (n + 1) / 2; e.next())
+      dst[e.at()] = slab_compose(src, n, e.p, e.x / M, e.x % M, M);
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  // dt = max(comp[:K, K], 0) on existing waves, then XLA:CPU's cumsum
+  // (tiles of 16 left to right, tile totals scanned, offsets added)
+  if (threadIdx.x == 0) {
+    float prefix = 0.0f;   // running scan of the tile totals
+    for (int t0 = 0; t0 < K; t0 += 16) {
+      float acc = 0.0f;
+      for (int p = t0; p < min(t0 + 16, K); ++p) {
+        const float dt = p < occ ? fmaxf(src[p * M + K], 0.0f) : 0.0f;
+        acc = __fadd_rn(acc, dt);
+        const float cum = t0 == 0 ? acc : __fadd_rn(acc, prefix);
+        t_row[p] = p < occ ? cum : kBig;
+        c_row[p] = p < occ ? hcol[p] : J;
+      }
+      prefix = t0 == 0 ? acc : __fadd_rn(prefix, acc);
+    }
+  }
+}
+
 // One block per resource row: the next K completions of the row.  Shared
 // memory (`slab_smem`): key, tkey [J]; the heads' remaining and column
-// [K]; for assoc, two banks of (K+1)^2 matrices (K, then ceil(K/2));
-// then the sort's idx [n] u16, n the power of two >= J.
+// [KH], KH = min(K, J) (a row has at most J heads); for assoc, two banks
+// of (K+1)^2 matrices (K, then ceil(K/2)), here or, when `work` is not
+// null, in work's [R][K + ceil(K/2)][K+1][K+1]; then the sort's idx [n]
+// u16, n the power of two >= J.
 __global__ void __launch_bounds__(kScanThreads)
 event_scan_slab_kernel(const float* __restrict__ rem,
                        const float* __restrict__ tie,
@@ -861,18 +984,20 @@ event_scan_slab_kernel(const float* __restrict__ rem,
                        const float* __restrict__ blk,
                        const float* __restrict__ ok,
                        float* __restrict__ t_out, int* __restrict__ col_out,
-                       int J, int n, int K, int assoc) {
+                       float* __restrict__ work, int J, int n, int K,
+                       int assoc) {
   extern __shared__ float smem[];
+  const int KH = min(K, J);
   float* key = smem;
   float* tkey = smem + J;
-  float* hrem = smem + 2 * J;                       // [K]
-  int* hcol = reinterpret_cast<int*>(hrem + K);     // [K]
-  const int M = K + 1, MM = M * M;
+  float* hrem = smem + 2 * J;                       // [KH]
+  int* hcol = reinterpret_cast<int*>(hrem + KH);    // [KH]
+  const int MM = (K + 1) * (K + 1);
   const int n_mats = assoc ? K + (K + 1) / 2 : 0;
-  float* bank_a = hrem + 2 * K;                     // [K][M][M]
-  float* bank_b = bank_a + static_cast<size_t>(K) * MM;
-  unsigned short* idx = reinterpret_cast<unsigned short*>(
-      bank_a + static_cast<size_t>(n_mats) * MM);   // [n]
+  // offsets from shared pointers only, so that the compiler keeps them
+  // in the shared space
+  unsigned short* idx = reinterpret_cast<unsigned short*>(   // [n]
+      hrem + 2 * KH + (work == nullptr ? n_mats * MM : 0));
   __shared__ int redi[32];
 
   const int r = blockIdx.x;
@@ -887,7 +1012,7 @@ event_scan_slab_kernel(const float* __restrict__ rem,
   // slots key below BIG and sort first); absent ranks read as remaining
   // 0, column 0 (the reference's empty sums)
   sort_row(key, tkey, J, n, idx);
-  for (int p = threadIdx.x; p < K; p += blockDim.x) {
+  for (int p = threadIdx.x; p < KH; p += blockDim.x) {
     const bool has = p < occ;
     hrem[p] = has ? key[idx[p]] : 0.0f;
     hcol[p] = has ? static_cast<int>(idx[p]) : 0;
@@ -922,76 +1047,12 @@ event_scan_slab_kernel(const float* __restrict__ rem,
     return;
   }
 
-  // `_wave_matrices`: identity but for row p = (-A[v,p]/d for v < p, 0,
-  // srem_p/d), d = max(A[p,p], 1e-30), clipped to +-BIG.  A[w,p] is the
-  // wave-w share of rank p: nonzero iff w <= p < occ.
-  for (int e = threadIdx.x; e < K * MM; e += blockDim.x) {
-    const int p = e / MM, i = (e % MM) / M, l = e % M;
-    float val = i == l ? 1.0f : 0.0f;
-    if (i == p) {
-      const float a_pp =
-          p < occ ? Fig8Row(__fsub_rn(g, static_cast<float>(p)), rm.npe_e,
-                            rm.pol, mips_r).rate(0.0f)
-                  : 0.0f;
-      const float d = fmaxf(a_pp, 1e-30f);
-      if (l == K) {
-        val = __fdiv_rn(hrem[p], d);
-      } else if (l < p) {
-        const float a_lp =
-            p < occ ? Fig8Row(__fsub_rn(g, static_cast<float>(l)), rm.npe_e,
-                              rm.pol, mips_r).rate(static_cast<float>(p - l))
-                    : 0.0f;
-        val = __fdiv_rn(-a_lp, d);
-      } else {
-        val = 0.0f;
-      }
-      val = val < -kBig ? -kBig : (val > kBig ? kBig : val);
-    }
-    bank_a[e] = val;
-  }
-  __syncthreads();
-
-  // the Pallas body's balanced tree: pairs (a, b) -> b @ a, an odd level
-  // padded with the identity; each entry an FMA chain over the inner
-  // index from +0
-  float* src = bank_a;
-  float* dst = bank_b;
-  for (int n = K; n > 1; n = (n + 1) / 2) {
-    const int half = (n + 1) / 2;
-    for (int e = threadIdx.x; e < half * MM; e += blockDim.x) {
-      const int pr = e / MM, i = (e % MM) / M, l = e % M;
-      const float* a = src + static_cast<size_t>(2 * pr) * MM;
-      const bool pad = 2 * pr + 1 >= n;
-      const float* b = a + MM;
-      float acc = 0.0f;
-      for (int jj = 0; jj < M; ++jj) {
-        const float bv = pad ? (i == jj ? 1.0f : 0.0f) : b[i * M + jj];
-        acc = fmaf(bv, a[jj * M + l], acc);
-      }
-      dst[e] = acc;
-    }
-    __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-
-  // dt = max(comp[:K, K], 0) on existing waves, then XLA:CPU's cumsum
-  // (tiles of 16 left to right, tile totals scanned, offsets added)
-  if (threadIdx.x == 0) {
-    float prefix = 0.0f;   // running scan of the tile totals
-    for (int t0 = 0; t0 < K; t0 += 16) {
-      float acc = 0.0f;
-      for (int p = t0; p < min(t0 + 16, K); ++p) {
-        const float dt = p < occ ? fmaxf(src[p * M + K], 0.0f) : 0.0f;
-        acc = __fadd_rn(acc, dt);
-        const float cum = t0 == 0 ? acc : __fadd_rn(acc, prefix);
-        t_row[p] = p < occ ? cum : kBig;
-        c_row[p] = p < occ ? hcol[p] : J;
-      }
-      prefix = t0 == 0 ? acc : __fadd_rn(prefix, acc);
-    }
-  }
+  if (work == nullptr)
+    slab_assoc(hrem + 2 * KH, K, J, occ, g, rm, mips_r, hrem, hcol, t_row,
+               c_row);
+  else
+    slab_assoc(work + static_cast<size_t>(r) * n_mats * MM, K, J, occ, g,
+               rm, mips_r, hrem, hcol, t_row, c_row);
 }
 
 }  // namespace
@@ -1093,42 +1154,45 @@ extern "C" int event_frontier_launch(const float* cand, const float* cuts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The slab kernel's shared memory (its layout above).
-static size_t slab_smem(int J, int K, int assoc) {
+// The slab kernel's shared memory (its layout above), with the wave
+// matrices' banks or without them (`banks` 0: sequential, or in `work`).
+static size_t slab_smem(int J, int K, int banks) {
   const size_t mm = static_cast<size_t>(K + 1) * (K + 1);
-  const size_t banks = assoc ? (K + (K + 1) / 2) * mm : 0;
-  return (2 * static_cast<size_t>(J) + 2 * K + banks) * sizeof(float) +
+  const size_t kh = static_cast<size_t>(K < J ? K : J);
+  return (2 * static_cast<size_t>(J) + 2 * kh +
+          (banks ? (K + (K + 1) / 2) * mm : 0)) * sizeof(float) +
          sort_width(J) * sizeof(unsigned short);
 }
 
-constexpr int kSlabMaxK = 256;
-
-// The largest K (<= 256) whose slab shared memory the card holds at this
-// J and form; 0 when none does (the row itself is too wide); a negative
-// CUDA error code if the card cannot be asked.
-extern "C" int event_scan_slab_max_k(int J, int assoc) {
+// The largest K whose associative slab, wave matrices included, fits in
+// the card's shared memory at this J; 0 when none does; a negative CUDA
+// error code if the card cannot be asked.  Larger K take a workspace.
+extern "C" int event_scan_slab_max_k(int J) {
   size_t limit = 0;
   const cudaError_t err = repro_torch::smem_limit(&limit);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int k = 0;
-  while (k < kSlabMaxK && slab_smem(J, k + 1, assoc) <= limit) ++k;
+  while (slab_smem(J, k + 1, 1) <= limit) ++k;
   return k;
 }
 
+// `work`: null, or (assoc) a [R][K + ceil(K/2)][K+1][K+1] f32 workspace
+// for the wave matrices.
 extern "C" int event_scan_slab_launch(const float* rem, const float* tie,
                                       const float* mips, const float* npe,
                                       const float* pol, const float* blk,
                                       const float* ok, float* t_out,
-                                      int* col_out, int R, int J, int K,
-                                      int assoc, void* stream) {
-  if (K < 1 || K > kSlabMaxK) return static_cast<int>(cudaErrorInvalidValue);
+                                      int* col_out, float* work, int R,
+                                      int J, int K, int assoc,
+                                      void* stream) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = slab_smem(J, K, assoc && work == nullptr);
   static size_t allowed = kDefaultSmem;
-  const size_t smem = slab_smem(J, K, assoc);
   const cudaError_t err = allow_smem(event_scan_slab_kernel, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   event_scan_slab_kernel<<<R, kScanThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      rem, tie, mips, npe, pol, blk, ok, t_out, col_out, J,
+      rem, tie, mips, npe, pol, blk, ok, t_out, col_out, work, J,
       static_cast<int>(sort_width(J)), K, assoc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -80,8 +80,12 @@
 #include <stdint.h>
 
 #include "launch.cuh"
+#include "tf32.cuh"
 
 namespace {
+
+using repro_torch::mma;
+using repro_torch::split;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -116,30 +120,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __host__ __device__ constexpr int x_ld() {
   return kMaxP + 32 / static_cast<int>(sizeof(T));
-}
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = big + small, both TF32, big the TF32 nearest v
-__device__ __forceinline__ void split(float v, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(v);
-  small = tf32(__fsub_rn(v, __uint_as_float(big)));
-}
-
-// d += a b: one m16n8k8 TF32 tensor-core product, f32 accumulate (not
-// volatile: the compiler may schedule it among independent work)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A warp's 16 rows times its four 8-column tiles at f32 accuracy:

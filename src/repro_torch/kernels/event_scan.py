@@ -650,14 +650,13 @@ def event_scan_checked_cuda(row_gridlet, remaining, mips_eff, num_pe,
 
 
 @functools.lru_cache(maxsize=None)
-def event_scan_slab_max_k(j, *, assoc=True):
-    """The largest ``k`` the slab kernel takes at row width ``j`` on this
-    card (the launcher's own shared-memory count): the associative
-    form holds its k + ceil(k/2) (k+1)x(k+1) wave matrices in shared
-    memory beside the row (32 at J = 640), the sequential form only the
-    row (256, the kernel's ceiling, at any J that fits).  0 where the
-    row alone does not fit."""
-    out = _lib().event_scan_slab_max_k(j, int(bool(assoc)))
+def event_scan_slab_max_k(j):
+    """The largest ``k`` whose associative slab keeps its k + ceil(k/2)
+    (k+1)x(k+1) wave matrices in the card's shared memory beside the
+    row of width ``j`` (32 at J = 640; the launcher's own count), 0
+    where none does.  :func:`event_scan_slab_cuda` stages a larger k's
+    matrices in a global workspace."""
+    out = _lib().event_scan_slab_max_k(j)
     if out < 0:
         _raise_on(-out, "event_scan_slab")
     return out
@@ -668,20 +667,16 @@ def event_scan_slab_cuda(remaining, mips_eff, num_pe, k, tie=None,
                          live=None, *, assoc=True):
     """:func:`event_scan_slab_ref` as one CUDA kernel launch (same
     arguments and outputs, bitwise; the associative form composes in
-    the balanced tree, as ``event_scan_slab_ref(tree=True)`` does).
-    ``k`` is at least 1 and at most :func:`event_scan_slab_max_k` at
-    this J and form (sequential: 256; associative: 32 at J = 640), else
-    ``ValueError``; a row too wide for shared memory is refused at
-    launch (``RuntimeError``)."""
+    the balanced tree, as ``event_scan_slab_ref(tree=True)`` does), for
+    every ``k >= 1``: the associative form above
+    :func:`event_scan_slab_max_k` keeps its wave matrices in a
+    [R, k + ceil(k/2), k+1, k+1] f32 workspace.  A row too wide for
+    shared memory is refused at launch (``RuntimeError``)."""
     if remaining.device.type != "cuda":
         raise ValueError("event_scan_slab_cuda takes CUDA tensors")
+    if k < 1:
+        raise ValueError("the slab needs k >= 1")
     r, j = remaining.shape
-    # a row too wide for any k (limit 0) is left to the launch to refuse
-    limit = event_scan_slab_max_k(j, assoc=assoc) or 256
-    if not 1 <= k <= limit:
-        form = "associative" if assoc else "sequential"
-        raise ValueError(f"the {form} slab kernel takes 1 <= k <= {limit} "
-                         f"at J = {j} (shared memory), got k = {k}")
     dev = remaining.device
     remaining, tie, policy, pe_blocked, row_ok = _default_inputs(
         remaining, tie, policy, pe_blocked, row_ok)
@@ -700,10 +695,14 @@ def event_scan_slab_cuda(remaining, mips_eff, num_pe, k, tie=None,
     t_wave = torch.empty((r, k), dtype=f32, device=dev)
     col_wave = torch.empty((r, k), dtype=torch.int32, device=dev)
     if r:
+        work = None
+        if assoc and k > event_scan_slab_max_k(j):
+            work = torch.empty((r, k + (k + 1) // 2, k + 1, k + 1),
+                               dtype=f32, device=dev)
         err = _lib().event_scan_slab_launch(
             _ptr(remaining), _ptr(tie), _ptr(mips), _ptr(npe), _ptr(policy),
             _ptr(pe_blocked), _ptr(row_ok), _ptr(t_wave), _ptr(col_wave),
-            r, j, k, int(bool(assoc)), _stream(dev))
+            _ptr(work), r, j, k, int(bool(assoc)), _stream(dev))
         _raise_on(err, "event_scan_slab")
         LAUNCHES["event_scan_slab"] += 1
     return t_wave, col_wave

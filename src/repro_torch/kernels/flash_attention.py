@@ -8,8 +8,10 @@ c maps each score s to tanh(s / c) * c.
 
 Two implementations: the CUDA kernel (``csrc/flash_attention.cu``, an
 online softmax over key tiles, launched by :func:`flash_attention_cuda`
-for tensors on the card: in bf16 both products run on Hopper's tensor
-cores, in f32 on scalar FMAs) and the plain PyTorch version
+for tensors on the card; both products run on Hopper's tensor cores: in
+bf16 on ``wgmma``, in f32 as three TF32 products each on ``mma.sync``,
+big.big + big.small + small.big of operands split as big = TF32(x),
+small = TF32(x - big), within ~1e-6 of f32) and the plain PyTorch version
 :func:`flash_attention_ref` (the materialised masked softmax in f32 of
 the reference's oracle, for tensors on the CPU and as the kernel's
 yardstick).  They agree to rounding: in f32 within the reference's own
@@ -64,9 +66,9 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0):
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0):
-    """:func:`flash_attention_ref` as one CUDA kernel launch: in bf16 one
-    block per flattened query head and 128-row query tile, in f32 per
-    64-row tile."""
+    """:func:`flash_attention_ref` as one CUDA kernel launch: one block
+    per flattened query head and 128-row query tile (in f32 at d = 256,
+    64-row)."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_cuda takes CUDA tensors")
     if q.dtype not in DTYPES:
@@ -79,7 +81,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0):
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not share {hkv} kv heads")
     dev = q.device
-    # the bf16 kernel stages rows with 16-byte copies
+    # the kernels stage rows with 16-byte copies
     q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))
     _check(k, "k", (b, hkv, skv, d), q.dtype, dev)

@@ -60,11 +60,8 @@ def event_scan_slab(remaining, mips_eff, num_pe, k=8, tie=None,
     the device) masks every row off; ``assoc`` picks the wave-matrix
     product over the sequential recurrence.  On the CPU the product runs
     in ``jax.lax.associative_scan``'s order, as the reference's CPU
-    route does; the kernel runs the Pallas body's balanced tree.  On
-    the card ``k`` is at most ``event_scan.event_scan_slab_max_k(J,
-    assoc=assoc)``: 256 for the sequential form; the associative form
-    keeps its wave matrices in shared memory, 32 at J = 640 (a larger
-    ``k`` raises ``ValueError``)."""
+    route does; the kernel runs the Pallas body's balanced tree.  Any
+    ``k >= 1`` on both routes."""
     fn = _event.event_scan_slab_cuda if _on_card(remaining) \
         else _event.event_scan_slab_ref
     return fn(remaining, mips_eff, num_pe, k, tie=tie, policy=policy,

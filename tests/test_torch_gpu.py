@@ -167,22 +167,15 @@ def _check_refused_launch(cuda):
                          torch.ones((1, s, n), device=cuda), chunk=s)
 
 
-def _check_slab(r, j, cuda, ks=(1, 4, 8)):
-    """Both forms, with and without the live gate, on the random table
-    and on one of whole-number remaining values (many equal, ranked by
-    the tie key); with ``ks`` None, k at the associative form's limit
-    at this J, and one above it refused."""
+def _check_slab(r, j, cuda, ks=(1, 4, 8), forms=(True, False)):
+    """The given forms (associative True, sequential False), with and
+    without the live gate, on the random table and on one of
+    whole-number remaining values (many equal, ranked by the tie key)."""
     rem, tie, mips, npe, pol, blk, ok = _scan_case(r, j, r + j, cuda)
     kw = dict(tie=tie, policy=pol, pe_blocked=blk, row_ok=ok)
-    if ks is None:
-        limit = ek.event_scan_slab_max_k(j)
-        assert 1 <= limit < 256
-        with pytest.raises(ValueError, match=f"k <= {limit} "):
-            ek.event_scan_slab_cuda(rem, mips, npe, limit + 1, **kw)
-        ks = (limit,)
     for table in (rem, torch.floor(rem / 100.0)):
         for k in ks:
-            for assoc in (True, False):
+            for assoc in forms:
                 for live in (None, torch.tensor(False, device=cuda)):
                     want = ek.event_scan_slab_ref(table, mips, npe, k,
                                                   live=live, assoc=assoc,
@@ -220,11 +213,13 @@ def _check_ssd(b, s, h, p, n, chunk, dtype, cuda, draws="test"):
            sk.ssd_scan_ref(*args, chunk=chunk), tol)
 
 
-def _check_flash(b, hq, hkv, s, d, causal, window, cap, dtype, cuda):
+def _check_flash(b, hq, hkv, s, d, causal, window, cap, dtype, cuda,
+                 skv=None):
+    """``s`` query rows against ``skv`` keys (default ``s``)."""
     g = torch.Generator().manual_seed(s + d)
     q = torch.randn((b, hq, s, d), generator=g).to(dtype).to(cuda)
-    k, v = (torch.randn((b, hkv, s, d), generator=g).to(dtype).to(cuda)
-            for _ in range(2))
+    k, v = (torch.randn((b, hkv, skv or s, d), generator=g).to(dtype).to(
+        cuda) for _ in range(2))
     kw = dict(causal=causal, window=window, cap=cap)
     got = fk.flash_attention_cuda(q, k, v, **kw)
     want = fk.flash_attention_ref(q, k, v, **kw)
@@ -239,11 +234,11 @@ def _check_flash(b, hq, hkv, s, d, causal, window, cap, dtype, cuda):
                                f" > 2e-2 at {got.shape}, {kw}")
 
 
-def _check_flash_unaligned(cuda):
-    """bf16 inputs that start off a 16-byte boundary (views into one
-    buffer) give the result of their aligned copies."""
+def _check_flash_unaligned(dtype, cuda):
+    """Inputs that start off a 16-byte boundary (views into one buffer)
+    give the result of their aligned copies."""
     g = torch.Generator().manual_seed(7)
-    buf = torch.randn(3 * 2 * 64 * 32 + 1, generator=g).to(torch.bfloat16)
+    buf = torch.randn(3 * 2 * 64 * 32 + 1, generator=g).to(dtype)
     q, k, v = buf.to(cuda)[1:].view(3, 1, 2, 64, 32).unbind(0)
     assert q.data_ptr() % 16
     assert torch.equal(fk.flash_attention_cuda(q, k, v),
@@ -350,10 +345,11 @@ def test_kernels_match_plain_on_the_card(cuda):
     checked form with the carry kept, its flag off and failing in one
     row; the one-launch frontier; link_scan with and without the trunk
     cap, and its engine form with and without trunks; the slab in both
-    forms with and without the live gate, also at the associative
-    form's k limit -- all bitwise; ssd_scan and f32 flash_attention at the reference's
-    tolerances, bf16 flash_attention per query row), refused launches,
-    and the router sending card tensors only to the kernels."""
+    forms with and without the live gate, also at k at and past the
+    associative form's shared-memory limit and past J -- all bitwise;
+    ssd_scan and f32 flash_attention at the reference's tolerances, bf16
+    flash_attention per query row), refused launches, and the router
+    sending card tensors only to the kernels."""
     for r, j in ((8, 1), (16, 32), (16, 640), (8, 2000), (3, 3000)):
         _check_event_scan(r, j, cuda)
     for r, j in ((16, 32), (16, 640), (16, 2000)):
@@ -368,7 +364,15 @@ def test_kernels_match_plain_on_the_card(cuda):
         _check_link_scan(l, t, cuda)
     for r, j in ((8, 1), (8, 12), (16, 640), (3, 2000), (16, 500)):
         _check_slab(r, j, cuda)
-    _check_slab(16, 640, cuda, ks=None)
+    # every k the reference takes: both forms at the associative form's
+    # shared-memory limit (its largest shared layout), the associative
+    # form past it (wave matrices in a workspace), the sequential form
+    # past its old cap of 256 and up to J
+    limit = ek.event_scan_slab_max_k(640)
+    assert 1 <= limit < 33
+    _check_slab(16, 640, cuda, ks=(limit,))
+    _check_slab(16, 640, cuda, ks=(33, 64), forms=(True,))
+    _check_slab(16, 640, cuda, ks=(257, 640), forms=(False,))
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((1, 32, 4, 8, 16, 8), (2, 64, 8, 16, 32, 16),
                       (1, 512, 2, 64, 128, 256), (1, 100, 3, 24, 40, 50)):
@@ -399,7 +403,17 @@ def test_kernels_match_plain_on_the_card(cuda):
                       (1, 2, 2, 256, 256, False, 0, 30.0),
                       (1, 3, 1, 1000, 16, False, 0, 0.0)):
             _check_flash(*shape, dtype, cuda)
-    _check_flash_unaligned(cuda)
+        _check_flash_unaligned(dtype, cuda)
+    # f32 at every head dim: Sq != Skv both ways and lengths off every
+    # tile (the f32 kernel's 128 / 64 query rows, 64 / 32 keys), causal
+    # with and without a window, bidirectional with a cap, GQA g = 2
+    for d in fk.HEAD_DIMS:
+        for sq, skv, causal, window, cap in ((77, 200, True, 0, 0.0),
+                                             (77, 200, True, 48, 0.0),
+                                             (200, 77, False, 0, 30.0),
+                                             (200, 200, True, 0, 50.0)):
+            _check_flash(1, 4, 2, sq, d, causal, window, cap,
+                         torch.float32, cuda, skv=skv)
     _check_card_tensors_never_reach_the_plain_versions(cuda)
 
 

@@ -508,6 +508,104 @@ def test_flash_attention_plain_matches_pallas_and_oracle():
     jax.clear_caches()
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: the float nearest x with 10 mantissa bits, ties
+    away from zero (half an ulp added to the magnitude, the 13 low bits
+    cut)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _matmul_3xtf32(a, b, apart, terms=3):
+    """f32 a @ b as the f32 flash kernel's tensor-core products: each
+    operand split as big = TF32(x), small = TF32(x - big); big.big plus
+    (small.big + big.small), each product exact and summed in f64, then
+    rounded to f32 once (``apart``: big.big and the small terms rounded
+    apart and added in f32, as the kernel's S; else together, as its
+    P V).  ``terms=1`` keeps big.big alone: one TF32 product."""
+    f64 = np.float64
+    ab, bb = _tf32(a), _tf32(b)
+    big = ab.astype(f64) @ bb.astype(f64)
+    if terms == 1:
+        return big.astype(np.float32)
+    small = (_tf32(a - ab).astype(f64) @ bb.astype(f64) +
+             ab.astype(f64) @ _tf32(b - bb).astype(f64))
+    if apart:
+        return big.astype(np.float32) + small.astype(np.float32)
+    return (big + small).astype(np.float32)
+
+
+def _flash_3xtf32(q, k, v, causal, window, cap, terms=3):
+    """The f32 flash kernel's arithmetic in numpy: an online softmax in
+    f32 over the kernel's key tiles (64 keys, 32 from d = 128 up), both
+    products as :func:`_matmul_3xtf32`."""
+    f32 = np.float32
+    _, hq, sq, d = q.shape
+    block_k = 32 if d > 64 else 64
+    hkv, skv = k.shape[1], k.shape[2]
+    neg_inf, scale = f32(-2.0 ** 30), f32(d ** -0.5)
+    qpos = np.arange(sq)[:, None]
+    out = np.empty_like(q)
+    for bi in range(q.shape[0]):
+        for h in range(hq):
+            kh, vh = k[bi, h // (hq // hkv)], v[bi, h // (hq // hkv)]
+            m = np.full(sq, neg_inf, f32)
+            l = np.zeros(sq, f32)
+            acc = np.zeros((sq, d), f32)
+            for lo in range(0, skv, block_k):
+                kt, vt = kh[lo:lo + block_k], vh[lo:lo + block_k]
+                s = _matmul_3xtf32(q[bi, h], kt.T, True, terms) * scale
+                if cap:
+                    s = np.tanh(s / f32(cap)) * f32(cap)
+                kpos = np.arange(lo, lo + len(kt))[None, :]
+                keep = np.ones(s.shape, bool)
+                if causal:
+                    keep &= kpos <= qpos
+                if window:
+                    keep &= kpos > qpos - window
+                s = np.where(keep, s, neg_inf)
+                m_new = np.maximum(m, s.max(-1))
+                p = np.exp(s - m_new[:, None])
+                alpha = np.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + _matmul_3xtf32(p, vt, False,
+                                                             terms)
+                m = m_new
+            out[bi, h] = acc / np.maximum(l, f32(1e-30))[:, None]
+    return out
+
+
+@pytest.mark.parametrize("d", (16, 128, 256))
+def test_flash_attention_3xtf32_emulation_holds_the_tolerance(d):
+    """The f32 kernel's precision, before any card time: its arithmetic
+    emulated in numpy (3xTF32 products with cvt.rna's rounding inside
+    an online softmax over the kernel's key tiles) against
+    ``flash_attention_ref`` and the Pallas kernel (interpret mode, whose
+    blocks must divide the length) at the reference's 2e-5, causal, with
+    a cap, and with a window and GQA, over a length that is not a whole
+    number of the kernel's tiles; one TF32 product instead must miss
+    it."""
+    b, hq, hkv, s, tol = 1, 4, 2, 150, 2e-5
+    rng = np.random.RandomState(d)
+    q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    k, v = rng.standard_normal((2, b, hkv, s, d)).astype(np.float32)
+    for causal, window, cap in ((True, 0, 0.0), (True, 0, 50.0),
+                                (True, 48, 0.0)):
+        kw = dict(causal=causal, window=window, cap=cap)
+        got = _flash_3xtf32(q, k, v, **kw)
+        want = [fk.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                       **kw).numpy(),
+                np.asarray(jax_ops.flash_attention(
+                    *map(jnp.asarray, (q, k, v)), block_q=30, block_kv=30,
+                    interpret=True, **kw))]
+        for w in want:
+            np.testing.assert_allclose(got, w, rtol=tol, atol=tol)
+        one = _flash_3xtf32(q, k, v, terms=1, **kw)
+        assert not np.allclose(one, want[0], rtol=tol, atol=tol)
+    jax.clear_caches()
+
+
 def test_cpu_tensors_route_to_plain_versions():
     rem, tie, mips, npe, pol, blk, ok = _scan_case(8, 9, seed=1)
     ek.reset_counts()
