@@ -26,14 +26,27 @@ Phases (any failure exits non-zero before the result line):
                slot map, trunk occupancy and caps in the kernel) with and
                without trunks, through one Scratch twice;
 4. main     -- ``simulation.run_experiment`` on the card for the 20u_100j
-               (paper section 5 scale) and 4u_512j cells, held bitwise
-               against the JAX reference in tests/data/port_ref_main.json,
-               then the contended-network cells 20u_100j_net and
-               20u_100j_trunknet (``net_cap=None``) against
-               tests/data/port_ref_net.json; every kernel of a cell's
+               (paper section 5 scale), 4u_512j and 200u_10j cells, held
+               bitwise against the JAX reference in
+               tests/data/port_ref_main.json, the contended-network cells
+               20u_100j_net and 20u_100j_trunknet (``net_cap=None``)
+               against tests/data/port_ref_net.json, then the
+               dynamic-resource cells against tests/data/port_ref_fail.json:
+               20u_100j_fail (MTBF/MTTR streams), 20u_100j_trunk (a
+               trunk-wide fault trace, retry limit, backoff, cooldown) and
+               their CPU-size twins 4u_25j_fail, 4u_25j_trunk and
+               4u_25j_net_fail, failure counters, downtime and every
+               gridlet's retry state included; every kernel of a cell's
                path must be launched (counts zeroed just before the run,
-               read just after) and the plain versions never; the network
-               cells print host syncs and link_scan launches per superstep;
+               read just after) and the plain versions never; each cell
+               prints its wall, supersteps, reseeds, host syncs and
+               kernel launches per superstep and its failures;
+   rand     -- the threefry on the card: ``rand.exponential``'s
+               ``-log1p(-u)`` over all 2**23 f32 uniforms, its SHA-256
+               against jitted JAX's (tests/data/port_ref_rand.json), and
+               the recorded PRNGKey / split chains and 4096-word bits,
+               uniform and exponential draws in both threefry layouts,
+               bitwise;
 5. kernel API -- ``repro_torch.kernels.ops.{event_scan_slab, ssd_scan,
                flash_attention}`` on the card at published widths (the
                20u_100j / 4u_512j / fleet-scale job tables, and at
@@ -62,8 +75,9 @@ Phases (any failure exits non-zero before the result line):
                the engine's ``_link_scan`` call on the network cells' own
                rows (its kernels a call); the slab at every SLAB_SHAPES
                entry and at SLAB_WIDE's k;
-7. profile  -- the first WINDOW supersteps of 20u_100j, 20u_100j_net and
-               20u_100j_trunknet under the profiler: device busy time,
+7. profile  -- the first WINDOW supersteps of 20u_100j, 200u_10j,
+               20u_100j_net, 20u_100j_trunknet, 20u_100j_fail and
+               20u_100j_trunk under the profiler: device busy time,
                idle share, kernel launches, link_scan launches and host
                syncs per superstep, top kernels.  Last: the profiler drops
                records now and then, and more after a profile this large.
@@ -81,6 +95,7 @@ earlier tree's ``src`` measures that tree the same way.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -104,13 +119,20 @@ MAIN_CELL = "20u_100j"
 NET_CELL = "20u_100j_net"
 TRUNK_CELL = "20u_100j_trunknet"
 NET_CELLS = (NET_CELL, TRUNK_CELL)
+FAIL_CELLS = ("20u_100j_fail", "20u_100j_trunk")
 # cell -> (reference file, the kernels its path runs)
 PATH = ("event_scan", "event_frontier")
 NET_PATH = PATH + ("link_scan",)
 CELLS = {"20u_100j": ("port_ref_main.json", PATH),
          "4u_512j": ("port_ref_main.json", PATH),
+         "200u_10j": ("port_ref_main.json", PATH),
          "20u_100j_net": ("port_ref_net.json", NET_PATH),
-         "20u_100j_trunknet": ("port_ref_net.json", NET_PATH)}
+         "20u_100j_trunknet": ("port_ref_net.json", NET_PATH),
+         "20u_100j_fail": ("port_ref_fail.json", PATH),
+         "20u_100j_trunk": ("port_ref_fail.json", PATH),
+         "4u_25j_fail": ("port_ref_fail.json", PATH),
+         "4u_25j_trunk": ("port_ref_fail.json", PATH),
+         "4u_25j_net_fail": ("port_ref_fail.json", NET_PATH)}
 SCAN_SHAPES = ((16, 32), (16, 640), (16, 2000), (8, 640))
 LINK_SHAPES = ((16, 640), (16, 32), (8, 2000))
 WINDOW = 300          # supersteps of the main path under the profiler
@@ -796,14 +818,15 @@ def load_cells(dev):
 
 
 def experiment_kwargs(c, dev, **kw):
-    """``run_experiment``'s arguments for a reference cell: the network
-    cells add their scenario and the auto-sized transfer table."""
+    """``run_experiment``'s arguments for a reference cell: the scenario
+    cells add their scenario, and those with payloads the auto-sized
+    transfer table."""
     from repro_torch.core import simulation
     out = dict(opt=c["opt"], n_users=c["n_users"], batch=c["batch"],
                device=dev)
     if "scenario" in c:
         out.update(scenario=simulation.Scenario(**c["scenario"]),
-                   net_cap=None)
+                   net_cap=None if c["net_cap"] else 0)
     out.update(kw)
     return out
 
@@ -840,10 +863,15 @@ def check_cell(name, c, res):
         ("returned", got_bits(g.returned), f32("returned")),
         ("cost", got_bits(g.cost), f32("cost")),
     ]
+    if "n_failed" in r:          # the dynamic-resource cells
+        pairs += [("downtime", got_bits(res.downtime), f32("downtime")),
+                  ("n_retries", g.n_retries.cpu().long(), ints("n_retries")),
+                  ("retry_at", got_bits(g.retry_at), f32("retry_at"))]
     for key in ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
-                "overflow"):
-        pairs.append((key, torch.tensor([int(getattr(res, key))]),
-                      torch.tensor([r[key]])))
+                "overflow", "n_failed", "n_resubmits"):
+        if key in r:
+            pairs.append((key, torch.tensor([int(getattr(res, key))]),
+                          torch.tensor([r[key]])))
     pairs.append(("truncated", torch.tensor([bool(res.truncated)]),
                   torch.tensor([r["truncated"]])))
     for key, got, want in pairs:
@@ -853,14 +881,75 @@ def check_cell(name, c, res):
     return bad
 
 
-def windows(cells, dev):
-    """The profile phase: the first WINDOW supersteps of the main cell
-    and both network cells, once unprofiled (wall, host syncs and
+def check_rand(dev):
+    """``rand.exponential``'s ``-log1p(-u)`` over every f32 uniform on the
+    card against the SHA-256 of jitted JAX's, and the recorded draws of
+    both threefry layouts, keys on the card; returns failures."""
+    from repro_torch.core import numerics, rand
+    with open(os.path.join(ROOT, "tests", "data", "port_ref_rand.json")) as f:
+        ref = json.load(f)
+    bad = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mant = torch.arange(2 ** 23, dtype=torch.int32, device=dev) | 0x3F800000
+    u = mant.view(torch.float32) - 1.0
+    e = -numerics.log1p(-u)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    digest = hashlib.sha256(e.cpu().numpy().tobytes()).hexdigest()
+    ok = digest == ref["log1p_sha256"]
+    print(f"exponential(1) over all 2**23 uniforms on the card: "
+          f"{ms:.1f} ms, SHA-256 {'equal to' if ok else 'DIFFERS from'} "
+          f"jitted JAX's", flush=True)
+    if not ok:
+        bad.append("rand: log1p over every uniform")
+
+    def words(t):
+        return t.detach().cpu().reshape(-1).tolist()
+
+    def f32_bits(t):
+        return words(t.contiguous().view(torch.int32).to(torch.int64) &
+                     rand.MASK)
+
+    for flag, seeds in ref["partitionable"].items():
+        part = flag == "True"
+        same = 0
+        for seed, r in seeds.items():
+            key = rand.PRNGKey(int(seed), dev)
+            k, chain = key, []
+            for _ in r["chain"]:
+                k, sub = rand.split(k, partitionable=part)
+                chain.append(words(k) + words(sub))
+            n = len(r["bits"])
+            got = {"key": words(key), "chain": chain,
+                   "split3": words(rand.split(key, 3, part)),
+                   "bits": words(rand.random_bits(key, (n,), part)),
+                   "uniform": f32_bits(rand.uniform(key, (n,), part)),
+                   "exponential": f32_bits(rand.exponential(
+                       key, torch.ones(n, device=dev), part))}
+            for name, want in got.items():
+                if want == r[name]:
+                    same += 1
+                else:
+                    bad.append(f"rand: partitionable={flag} seed {seed} "
+                               f"{name}")
+        print(f"threefry partitionable={flag}: {same} of "
+              f"{6 * len(seeds)} recorded draws bitwise (keys, split "
+              f"chains, split(key, 3), {n}-word bits, uniform, "
+              f"exponential)", flush=True)
+    return bad
+
+
+def windows(cells, dev,
+            names=(MAIN_CELL, "200u_10j") + NET_CELLS + FAIL_CELLS):
+    """The profile phase: the first WINDOW supersteps of the main cell,
+    both network cells and (by default) 200u_10j and both full-width
+    dynamic-resource cells, once unprofiled (wall, host syncs and
     link_scan launches) and once under the profiler (device busy time,
     idle share, kernel launches per superstep, top kernels)."""
     from repro_torch.core import simulation
     from repro_torch.kernels import event_scan as ek
-    for name in (MAIN_CELL,) + NET_CELLS:
+    for name in names:
         phase(f"where the time goes: the first {WINDOW} supersteps of "
               f"{name}")
         c, g, fleet = cells[name]
@@ -926,7 +1015,7 @@ def compare(dev):
     engine_link_calls(cells, torch.Generator().manual_seed(20), dev)
     phase("f32 attention")
     f32_attention_times(dev)
-    windows(cells, dev)
+    windows(cells, dev, names=(MAIN_CELL,) + NET_CELLS)
     return 0
 
 
@@ -1115,14 +1204,16 @@ def main():
                   f"link_scan launches", flush=True)
         bad = check_cell(name, c, res)
         steps = int(res.n_steps) + int(res.n_spec)
+        per_step = {k: round(counts[k] / steps, 3) for k in path}
         print(f"{name}: wall {wall:.3f} s, supersteps {int(res.n_steps)}, "
               f"speculative {int(res.n_spec)}, reseeds "
               f"{int(res.n_reseeds)}, scans {int(res.n_scans)}, events "
               f"{int(res.n_events)}, host syncs {res.host_syncs} "
               f"({res.host_syncs / steps:.2f} per superstep), "
-              f"launches {counts}, plain calls {plain}, done "
-              f"{int(res.n_done.sum())}, spent {float(res.spent.sum())}",
-              flush=True)
+              f"launches {counts} ({per_step} per superstep), plain calls "
+              f"{plain}, done {int(res.n_done.sum())}, spent "
+              f"{float(res.spent.sum())}, failed {int(res.n_failed)}, "
+              f"resubmitted {int(res.n_resubmits)}", flush=True)
         print(f"{name}: " + ("bitwise equal to the reference (every "
                              "counter, trace, status and float field)"
                              if not bad else "; ".join(bad)), flush=True)
@@ -1131,6 +1222,9 @@ def main():
             failures.append(f"{name}: a kernel was never launched")
         if max(plain.values()) > 0:
             failures.append(f"{name}: a plain version ran on the card")
+
+    phase("rand: the threefry and XLA:CPU's log1p on the card")
+    failures += check_rand(dev)
 
     phase("kernel API: ops.event_scan_slab, ops.ssd_scan and "
           "ops.flash_attention on the card")

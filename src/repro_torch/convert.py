@@ -20,6 +20,7 @@ from .core.resource import Fleet
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
+           np.dtype(np.uint32): torch.int64,     # PRNG key words
            np.dtype(np.bool_): torch.bool}
 
 
@@ -29,7 +30,8 @@ def _get(src, name):
 
 def _tensor(x, device):
     a = np.asarray(x)
-    return torch.as_tensor(a.copy(), dtype=_DTYPES[a.dtype], device=device)
+    b = a.astype(np.int64) if a.dtype == np.uint32 else a.copy()
+    return torch.as_tensor(b, dtype=_DTYPES[a.dtype], device=device)
 
 
 def _build(cls, src, device):
@@ -49,13 +51,10 @@ def fleet(src, device="cpu") -> Fleet:
 
 
 def params(src, device="cpu") -> engine.SimParams:
-    """``SimParams`` from the reference's params fields, the link rates
-    and trunk vectors included.  Raises ``NotImplementedError`` where
-    the reference switches on a source the port does not run yet
-    (reservations, fault traces, failures, dynamic pricing,
-    plan-ahead)."""
-    if _get(src, "fault_time") is not None:
-        raise NotImplementedError("fault_time is not ported yet")
+    """``SimParams`` from the reference's params fields: the link rates,
+    trunk vectors, failure key and fault-trace rows included.  Raises
+    ``NotImplementedError`` where the reference switches on a source the
+    port does not run yet (reservations, dynamic pricing, plan-ahead)."""
     if np.asarray(_get(src, "resv_res")).shape[0]:
         raise NotImplementedError("reservations are not ported yet")
     p = _build(engine.SimParams, src, device)

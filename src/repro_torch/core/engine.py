@@ -34,12 +34,19 @@ params name trunks, and the link scan (``link_scan``'s engine form,
 ``kernels.event_scan.link_scan_tabled_*``: the tie key, the trunk
 occupancy and caps in the kernel) forecasts the next drain exactly as
 ``event_scan`` forecasts the next completion.
-FAILURE, RECOVERY, TRACE, RESERVATION, MARKET and AUCTION are
-registered with +inf candidates and no apply body, so trace codes and
-apply order match the reference; ``run``/``run_direct`` refuse every
-setting that would switch one on.  Resources therefore never go down
-here (``res_up`` stays all True), so no arrival can fail and no
-superstep restructures the slab carry through an interfering source.
+Resources are dynamic as in the reference: the FAILURE and RECOVERY
+sources draw MTBF/MTTR holding times from the run's threefry key
+(``rand``, bit for bit ``jax.random``), the TRACE source replays a
+time-sorted fault trace whose trunk targets flip a whole failure domain,
+and the residents of a downed resource (and arrivals at one) move to
+FAILED with their cost refunded and a retry backoff
+(``_fail_gridlets``); the broker resubmits them.  A run without a
+failure stream or a trace runs none of this: the gates are fixed at its
+start (``HostCounts.strikes`` / ``trace``), as the reference's
+``fault_time is None`` gate is static.  RESERVATION, MARKET and AUCTION
+are registered with +inf candidates and no apply body, so trace codes
+and apply order match the reference; ``run``/``run_direct`` refuse
+every setting that would switch one on.
 """
 from __future__ import annotations
 
@@ -48,13 +55,13 @@ import dataclasses
 import torch
 
 from . import broker as broker_mod
-from . import calendar, des, network, numerics
+from . import calendar, des, network, numerics, rand
 from . import economy as econ_mod
 from ..kernels import event_scan as _event_kernels
 from ..kernels.event_scan import BIG as _BIG
 from .segments import group_rank, segment_count
-from .types import (DONE, IN_TRANSIT, INF, QUEUED, RETURNING, RUNNING, SJF,
-                    SPACE_SHARED, TIME_SHARED, replace, resolve_device,
+from .types import (DONE, FAILED, IN_TRANSIT, INF, QUEUED, RETURNING, RUNNING,
+                    SJF, SPACE_SHARED, TIME_SHARED, replace, resolve_device,
                     to_device)
 
 TRACE_LEN = 64
@@ -74,8 +81,10 @@ class SimParams:
     sched_frac: torch.Tensor          # f32[] fraction of deadline-left
     measure_alpha: torch.Tensor       # f32[] measurement smoothing
     registered: torch.Tensor      # bool[R] GIS availability mask
-    mtbf: torch.Tensor            # f32[R] mean time between failures (0)
+    mtbf: torch.Tensor            # f32[R] mean time between failures
+                                  #     (0 = no failure stream)
     mttr: torch.Tensor            # f32[R] mean time to recovery
+    fail_key: torch.Tensor        # i64[2] key seeding the MTBF/MTTR streams
     link_baud: torch.Tensor       # f32[R] link capacity (net mode only)
     bg_flows: torch.Tensor        # f32[R] background flows (net mode)
     pricing_model: torch.Tensor   # i32[] economy.PRICE_* (static only)
@@ -89,23 +98,33 @@ class SimParams:
     trunk_of: torch.Tensor | None = None      # i32[R]
     trunk_baud: torch.Tensor | None = None    # f32[R]
     trunk_bg: torch.Tensor | None = None      # f32[R]
+    # trace-driven fault injection (None = no trace): time-sorted rows;
+    # a target 0..R-1 names a resource, R + id names trunk id
+    fault_time: torch.Tensor | None = None    # f32[K]
+    fault_target: torch.Tensor | None = None  # i32[K]
+    fault_up: torch.Tensor | None = None      # bool[K] True = bring up
 
 
 def default_params(deadline, budget, opt, n_users: int,
                    n_resources: int = 1, registered=None, mtbf=None,
-                   mttr=None, reservations=None, link_baud=None,
-                   bg_flows=None, pricing_model=econ_mod.PRICE_STATIC,
-                   plan_ahead=False, trunk_of=None, trunk_baud=None,
-                   trunk_bg=None, fault_trace=None, retry_limit=None,
-                   backoff_base=None, blacklist_cooldown=None,
-                   device="cpu") -> SimParams:
-    """``mtbf``/``mttr`` broadcast to [R]; ``link_baud``/``bg_flows``
-    feed the fair-share network (consulted only with ``net_cap > 0``);
-    ``trunk_of`` (per-resource trunk id, -1 = private) with the
-    per-trunk ``trunk_baud``/``trunk_bg`` enables shared trunks.  The
-    failure, reservation, dynamic-pricing, plan-ahead and fault-trace
-    settings are not ported yet and raise ``NotImplementedError`` when
-    switched on."""
+                   mttr=None, reservations=None, fail_key=None,
+                   link_baud=None, bg_flows=None,
+                   pricing_model=econ_mod.PRICE_STATIC, plan_ahead=False,
+                   trunk_of=None, trunk_baud=None, trunk_bg=None,
+                   fault_trace=None, retry_limit=None, backoff_base=None,
+                   blacklist_cooldown=None, device="cpu") -> SimParams:
+    """``mtbf``/``mttr`` broadcast to [R] (0 disables the failure
+    stream), seeded by ``fail_key`` (default ``rand.PRNGKey(0)``);
+    ``link_baud``/``bg_flows`` feed the fair-share network (consulted
+    only with ``net_cap > 0``); ``trunk_of`` (per-resource trunk id, -1
+    = private) with the per-trunk ``trunk_baud``/``trunk_bg`` enables
+    shared trunks.  ``fault_trace`` is an iterable of (time, target, up)
+    rows or a [K, 3] array: target 0..R-1 names a resource, R + id a
+    trunk (its whole failure domain flips at once); the rows are sorted
+    by time here (stably).  ``retry_limit``/``backoff_base``/
+    ``blacklist_cooldown`` are the fault-tolerant broker's knobs.  The
+    reservation, dynamic-pricing and plan-ahead settings are not ported
+    yet and raise ``NotImplementedError`` when switched on."""
     def t(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
@@ -115,17 +134,21 @@ def default_params(deadline, budget, opt, n_users: int,
     if registered is None:
         registered = torch.ones((n_resources,), dtype=torch.bool,
                                 device=device)
-    if mtbf is not None and bool((r(mtbf) > 0).any()):
-        raise NotImplementedError("failure streams (mtbf > 0) are not "
-                                  "ported yet")
     if reservations is not None and len(list(reservations)) > 0:
         raise NotImplementedError("reservations are not ported yet")
     if econ_mod.as_pricing_model(pricing_model) != econ_mod.PRICE_STATIC:
         raise NotImplementedError("dynamic pricing is not ported yet")
     if plan_ahead:
         raise NotImplementedError("plan_ahead is not ported yet")
+    ft = ftgt = fup = None
     if fault_trace is not None:
-        raise NotImplementedError("fault traces are not ported yet")
+        tr = torch.as_tensor(
+            fault_trace if hasattr(fault_trace, "shape") else
+            [(float(a), int(b), bool(c)) for a, b, c in fault_trace],
+            dtype=torch.float32, device=device).reshape(-1, 3)
+        tr = tr[torch.sort(tr[:, 0], stable=True).indices]
+        ft, ftgt, fup = (tr[:, 0].contiguous(), tr[:, 1].to(torch.int32),
+                         tr[:, 2] > 0.5)
     trunks = (None, None, None) if trunk_of is None else \
         network.trunk_topology(trunk_of, n_resources, trunk_baud=trunk_baud,
                                trunk_bg=trunk_bg, device=device)
@@ -138,6 +161,9 @@ def default_params(deadline, budget, opt, n_users: int,
         measure_alpha=t(0.5),
         registered=t(registered, torch.bool),
         mtbf=r(mtbf), mttr=r(mttr),
+        fail_key=(rand.PRNGKey(0, device) if fail_key is None
+                  else torch.as_tensor(fail_key, dtype=torch.int64,
+                                       device=device)),
         link_baud=t(INF if link_baud is None else link_baud).broadcast_to(
             (n_resources,)).clone(),
         bg_flows=r(bg_flows),
@@ -149,6 +175,7 @@ def default_params(deadline, budget, opt, n_users: int,
         blacklist_cooldown=t(0.0 if blacklist_cooldown is None
                              else blacklist_cooldown),
         trunk_of=trunks[0], trunk_baud=trunks[1], trunk_bg=trunks[2],
+        fault_time=ft, fault_target=ftgt, fault_up=fup,
     )
 
 
@@ -160,7 +187,14 @@ class HostCounts:
     loop made, and, on the device, ``n_reseeds`` (i32[], the scans that
     re-sorted: the checked scan adds to it without a read), the
     ``scratch`` its kernels write their outputs to and the link scan's
-    padded per-row inputs, ``link_rows`` (built on its first call)."""
+    padded per-row inputs, ``link_rows`` (built on its first call).
+
+    The run's static gates, fixed at its start (the reference's static
+    ``fault_time is None`` gate, widened to the failure streams):
+    ``strikes`` (some ``mtbf > 0``: FAILURE and RECOVERY apply),
+    ``trace`` (a fault trace is replayed).  ``maybe_down`` is False
+    while the host knows every resource is up, so no arrival can fail:
+    a strike or a trace row sets it, and a recovery reads it back."""
     n_reseeds: torch.Tensor
     n_steps: int = 0
     n_spec: int = 0
@@ -169,11 +203,19 @@ class HostCounts:
     scratch: _event_kernels.Scratch = dataclasses.field(
         default_factory=_event_kernels.Scratch)
     link_rows: _event_kernels.LinkRows | None = None
+    strikes: bool = False
+    trace: bool = False
+    maybe_down: bool = False
 
     def read(self, pred) -> bool:
         """Read one device predicate back to the host."""
         self.syncs += 1
         return bool(pred)
+
+    def read_flags(self, preds) -> list:
+        """Read a bool vector back to the host in one sync."""
+        self.syncs += 1
+        return preds.tolist()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +239,8 @@ class SimState:
     fail_since: torch.Tensor      # f32[R] instant the resource went down
     downtime: torch.Tensor        # f32[R] accumulated down intervals
     recovered_at: torch.Tensor    # f32[R] instant of the last recovery
+    trace_ptr: torch.Tensor       # i32 fault-trace cursor (rows < it applied)
+    rng_key: torch.Tensor         # i64[2] key of the MTBF/MTTR streams
     price: torch.Tensor           # f32[R] posted G$/MI trading metric
     next_market: torch.Tensor     # f32 next repricing instant (inf)
     next_auction: torch.Tensor    # f32 next auction round (inf)
@@ -589,27 +633,62 @@ def _apply_returns(state, fleet, t_next, n_users, n_resources):
     return state, ret_due
 
 
+def _fail_gridlets(state, victims, n_users, now, params):
+    """The fail-and-refund invariant of FAILURE, TRACE and an arrival at
+    a down resource: ``victims`` move to FAILED, drop their broker
+    assignment and pending instant, and their committed cost is refunded
+    (segment sums in index order, as the reference adds them).  Each
+    victim's retry count ticks, and it may be re-dispatched from ``now +
+    backoff_base * 2**(n_retries - 1)`` on (XLA:CPU's ``exp2``, from
+    ``numerics.EXP2_BITS``; the add is one fused multiply-add).  Every
+    write is gated on ``victims``."""
+    g = state.g
+    refund = numerics.segment_sum(torch.where(victims, g.cost, 0.0),
+                                  g.user, n_users, state.width)
+    n_retries = g.n_retries + victims.to(torch.int32)
+    unit = numerics.exp2_table(n_retries - 1)
+    g = replace(
+        g,
+        status=torch.where(victims, FAILED, g.status),
+        assigned=torch.where(victims, -1, g.assigned),
+        t_event=torch.where(victims, INF, g.t_event),
+        cost=torch.where(victims, 0.0, g.cost),
+        n_retries=n_retries,
+        retry_at=torch.where(victims,
+                             numerics.fma(params.backoff_base, unit, now),
+                             g.retry_at),
+    )
+    return replace(state, g=g, spent=state.spent - refund,
+                   n_failed=state.n_failed + victims.sum().to(torch.int32))
+
+
 def _apply_arrivals(state, fleet, params, free_pe, arr_pre, t_next,
                     n_users, n_resources):
-    """IN_TRANSIT & due -> RUNNING (time-shared / free PE) or QUEUED.
-    Space-shared arrivals fill the ``free_pe`` PEs left after this
-    superstep's admissions, pre-broker arrivals (``arr_pre``) first,
-    flat-index order within each class; the rest queue, stamped with
-    their arrival instant.  (No resource is ever down on this slice, so
-    no arrival fails.)  Returns (state, arrivals, newly running, newly
-    queued)."""
+    """IN_TRANSIT & due -> RUNNING (time-shared / free PE) or QUEUED;
+    arrivals at a down resource fail-and-refund.  Space-shared arrivals
+    fill the ``free_pe`` PEs left after this superstep's admissions,
+    pre-broker arrivals (``arr_pre``) first, flat-index order within
+    each class; the rest queue, stamped with their arrival instant.
+    Returns (state, arrivals, newly running, newly queued)."""
     g = state.g
     n = g.n
     res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
     idx = torch.arange(n, device=res.device)
     arr_due = (g.status == IN_TRANSIT) & (g.t_event <= t_next)
+    arr_live = arr_due
+    if state.host.maybe_down:
+        arr_fail = arr_due & ~state.res_up[res]
+        if state.host.read(arr_fail.any()):
+            arr_live = arr_due & ~arr_fail
+            state = _fail_gridlets(state, arr_fail, n_users, t_next, params)
+            g = state.g
     is_ss = fleet.policy[res] == SPACE_SHARED
-    arr_ss = arr_due & is_ss
+    arr_ss = arr_live & is_ss
     order = torch.where(arr_pre, idx, idx + n)
     # Only arr_ss members consult the rank, so computing it without the
     # reference's arr_ss.any() cond gives the same result.
     rank = group_rank(res, arr_ss, order, n_resources)[0]
-    arr_run = arr_due & (~is_ss | (rank < free_pe[res]))
+    arr_run = arr_live & (~is_ss | (rank < free_pe[res]))
     arr_queue = arr_ss & ~arr_run
     g = replace(
         g,
@@ -625,6 +704,103 @@ def _apply_arrivals(state, fleet, params, free_pe, arr_pre, t_next,
     return state, arr_due, arr_run, arr_queue
 
 
+def _residents_r(state, n_resources):
+    """bool[R]: the resource hosts RUNNING or QUEUED work, which a strike
+    would fail (the speculation horizon's interference test)."""
+    g = state.g
+    res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    resident = (g.status == RUNNING) | (g.status == QUEUED)
+    return segment_count(resident, res, n_resources) > 0
+
+
+def _apply_failures(state, fleet, params, due_r, now, n_users,
+                    n_resources, r_pad):
+    """Down the resources in ``due_r``: RUNNING/QUEUED residents fail and
+    refund, their slots are freed, the brokers' measurement window on
+    the resource resets, and the MTTR stream (one ``split`` of the run's
+    key) schedules each one's recovery."""
+    g = state.g
+    key, k1 = rand.split(state.rng_key)
+    repair = torch.where(params.mttr > 0.0,
+                         rand.exponential(k1, params.mttr), 0.0)
+    on_r = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    victim = ((g.status == RUNNING) | (g.status == QUEUED)) & due_r[on_r]
+    state = _fail_gridlets(state, victim, n_users, now, params)
+    state = replace(
+        state, rng_key=key,
+        res_up=state.res_up & ~due_r,
+        next_fail=torch.where(due_r, INF, state.next_fail),
+        next_recover=torch.where(due_r, now + repair, state.next_recover),
+        fail_since=torch.where(due_r, now, state.fail_since),
+        first_dispatch=torch.where(due_r[None, :], INF,
+                                   state.first_dispatch))
+    return _free_slots(state, victim & (state.slot >= 0), on_r, r_pad)
+
+
+def _apply_recoveries(state, params, due_r, now):
+    """Bring the resources in ``due_r`` back up: downtime accrues, the
+    broker's cooldown stamp moves, and the MTBF stream (one ``split``)
+    schedules each one's next failure."""
+    key, k1 = rand.split(state.rng_key)
+    uptime = rand.exponential(k1, params.mtbf)     # inf where mtbf <= 0
+    return replace(
+        state, rng_key=key,
+        res_up=state.res_up | due_r,
+        next_fail=torch.where(due_r, now + uptime, state.next_fail),
+        next_recover=torch.where(due_r, INF, state.next_recover),
+        downtime=state.downtime + torch.where(due_r, now - state.fail_since,
+                                              0.0),
+        fail_since=torch.where(due_r, INF, state.fail_since),
+        recovered_at=torch.where(due_r, now, state.recovered_at))
+
+
+def _trace_masks(params, due, n_resources):
+    """The due fault-trace rows as per-resource (down, up) masks: target
+    ``r < R`` names resource r, ``R + id`` every resource on trunk id."""
+    tgt = params.fault_target
+    r_idx = torch.arange(n_resources, dtype=torch.int32, device=tgt.device)
+    hit = tgt[None, :] == r_idx[:, None]                    # [R, K]
+    if params.trunk_of is not None:
+        hit = hit | ((tgt[None, :] - n_resources) ==
+                     params.trunk_of[:, None])
+    down_r = (hit & (due & ~params.fault_up)[None, :]).any(dim=1)
+    up_r = (hit & (due & params.fault_up)[None, :]).any(dim=1)
+    return down_r, up_r
+
+
+def _apply_trace(state, fleet, params, due, down_r, up_r, now, n_users,
+                 n_resources, r_pad):
+    """Apply one batch of due trace rows, downs before ups (a down and an
+    up of one resource at one instant nets to up): a down fails its
+    residents like FAILURE and clears any pending strike, an up accrues
+    downtime and stamps the cooldown like RECOVERY; no draw."""
+    g = state.g
+    on_r = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    eff_down = down_r & state.res_up
+    victim = ((g.status == RUNNING) | (g.status == QUEUED)) & down_r[on_r]
+    state = _fail_gridlets(state, victim, n_users, now, params)
+    state = replace(
+        state,
+        res_up=state.res_up & ~down_r,
+        next_fail=torch.where(down_r, INF, state.next_fail),
+        next_recover=torch.where(down_r, INF, state.next_recover),
+        fail_since=torch.where(eff_down, now, state.fail_since),
+        first_dispatch=torch.where(eff_down[None, :], INF,
+                                   state.first_dispatch),
+        trace_ptr=state.trace_ptr + due.sum().to(torch.int32))
+    state = _free_slots(state, victim & (state.slot >= 0), on_r, r_pad)
+    eff_up = up_r & ~state.res_up
+    return replace(
+        state,
+        res_up=state.res_up | up_r,
+        next_recover=torch.where(up_r, INF, state.next_recover),
+        downtime=state.downtime + torch.where(
+            eff_up & torch.isfinite(state.fail_since),
+            now - state.fail_since, 0.0),
+        fail_since=torch.where(eff_up, INF, state.fail_since),
+        recovered_at=torch.where(eff_up, now, state.recovered_at))
+
+
 # ----------------------------------------------------------------------
 # Event sources (des.FnSource protocol)
 # ----------------------------------------------------------------------
@@ -633,12 +809,22 @@ def _identity(state, now):
     return state
 
 
+def _due(state, ctx, kind, pred) -> bool:
+    """Whether source ``kind`` has events due: the flag the superstep
+    already read for it (``ctx["due"]``), else one read of ``pred``."""
+    known = ctx.get("due", {}).get(kind)
+    return state.host.read(pred) if known is None else known
+
+
 def _make_sources(fleet, params, n_users, ctx):
     """The engine's event sources, ordered by des.PRIORITY_ORDER.
     ``ctx`` is the per-superstep scratch dict the sources share (scan
-    outputs, event masks, the remaining free-PE budget).  Sources not on
-    this slice expose +inf candidates of the reference's sizes and apply
-    as the identity."""
+    outputs, event masks, the remaining free-PE budget, the due flags
+    read for this superstep).  FAILURE and RECOVERY apply only in a run
+    with a failure stream, TRACE only with a fault trace (the run's
+    static gates, ``HostCounts``); reservations and pricing are not on
+    this slice: they expose +inf candidates of the reference's sizes and
+    apply as the identity."""
     n_resources = fleet.r
 
     # -- COMPLETION: the kernel scan IS the candidate computation -------
@@ -678,6 +864,88 @@ def _make_sources(fleet, params, n_users, ctx):
         ctx["free_pe"] = free_pe - n_admit_r
         ctx["newly"] = admitq
         ctx[("count", des.K_COMPLETION)] = completes.sum().to(torch.int32)
+        return state
+
+    # -- FAILURE / RECOVERY: MTBF/MTTR renewal streams ------------------
+    def _no_strike(kind, state):
+        ctx[("count", kind)] = torch.zeros((), dtype=torch.int32,
+                                           device=state.t.device)
+        ctx[("who", kind)] = ctx[("count", kind)]
+        return state
+
+    def failure_apply(state, now):
+        if not state.host.strikes:
+            return state
+        due_r = torch.isfinite(state.next_fail) & (state.next_fail <= now)
+        if not _due(state, ctx, des.K_FAILURE, due_r.any()):
+            return _no_strike(des.K_FAILURE, state)
+        ctx[("count", des.K_FAILURE)] = due_r.sum().to(torch.int32)
+        ctx[("who", des.K_FAILURE)] = torch.argmax(due_r.to(torch.int32))
+        # QUEUED victims leave the queue mid-rank: the carried ordering
+        # no longer describes it.
+        qr, qok = ctx["qcarry"]
+        ctx["qcarry"] = (qr, torch.zeros_like(qok))
+        state.host.maybe_down = True
+        return _apply_failures(state, fleet, params, due_r, now, n_users,
+                               n_resources, state.row_gridlet.shape[0])
+
+    def recovery_apply(state, now):
+        if not state.host.strikes:
+            return state
+        due_r = torch.isfinite(state.next_recover) & \
+            (state.next_recover <= now)
+        if not _due(state, ctx, des.K_RECOVERY, due_r.any()):
+            return _no_strike(des.K_RECOVERY, state)
+        ctx[("count", des.K_RECOVERY)] = due_r.sum().to(torch.int32)
+        ctx[("who", des.K_RECOVERY)] = torch.argmax(due_r.to(torch.int32))
+        state = _apply_recoveries(state, params, due_r, now)
+        state.host.maybe_down = state.host.read((~state.res_up).any())
+        return state
+
+    # A strike on a resource with resident work cuts the speculation
+    # horizon; one on a resource without any fires in the micro-steps.
+    # (With no failure stream both streams are +inf and cut nothing.)
+    def failure_horizon(state):
+        if not state.host.strikes:
+            return state.next_fail
+        return torch.where(_residents_r(state, n_resources),
+                           state.next_fail, INF)
+
+    def recovery_horizon(state):
+        if not state.host.strikes:
+            return state.next_recover
+        return torch.where(_residents_r(state, n_resources),
+                           state.next_recover, INF)
+
+    # -- TRACE: the replayed fault-injection schedule -------------------
+    # A cursor walks the time-sorted rows; the due rows are its prefix of
+    # instants <= now.  Without a trace: one +inf candidate, no apply.
+    def trace_candidates(state):
+        if params.fault_time is None:
+            return torch.full_like(state.t, INF).reshape(1)
+        k_idx = torch.arange(params.fault_time.shape[0], dtype=torch.int32,
+                             device=state.t.device)
+        return torch.where(k_idx >= state.trace_ptr, params.fault_time, INF)
+
+    def trace_apply(state, now):
+        if params.fault_time is None:
+            return state
+        k_idx = torch.arange(params.fault_time.shape[0], dtype=torch.int32,
+                             device=state.t.device)
+        due = (k_idx >= state.trace_ptr) & (params.fault_time <= now)
+        if not _due(state, ctx, des.K_TRACE, due.any()):
+            return state
+        down_r, up_r = _trace_masks(params, due, n_resources)
+        ctx[("count", des.K_TRACE)] = due.sum().to(torch.int32)
+        ctx[("who", des.K_TRACE)] = params.fault_target[
+            torch.argmax(due.to(torch.int32))]
+        # QUEUED victims leave the queue mid-rank (ups only add capacity)
+        qr, qok = ctx["qcarry"]
+        ctx["qcarry"] = (qr, qok & ~down_r.any())
+        state = _apply_trace(state, fleet, params, due, down_r, up_r, now,
+                             n_users, n_resources,
+                             state.row_gridlet.shape[0])
+        state.host.maybe_down = state.host.read((~state.res_up).any())
         return state
 
     # -- NETWORK: fair-share links (the [R_pad, T] transfer table) ------
@@ -790,7 +1058,7 @@ def _make_sources(fleet, params, n_users, ctx):
         g = state.g
         ctx["arr_pre"] = (g.status == IN_TRANSIT) & (g.t_event <= now)
         pre_transit = g.status == IN_TRANSIT
-        if state.host.read(ctx["fired_b"]):
+        if _due(state, ctx, des.K_BROKER, ctx["fired_b"]):
             state = broker_mod.broker_event(state, fleet, params, n_users)
         if _net_on(state):
             # Re-time fresh dispatches: contending payloads become
@@ -815,12 +1083,14 @@ def _make_sources(fleet, params, n_users, ctx):
                      completion_candidates, completion_apply,
                      horizon_fn=des.no_interference),
         des.FnSource(des.K_FAILURE, "failure",
-                     lambda s: s.next_fail, _identity),
+                     lambda s: s.next_fail, failure_apply,
+                     horizon_candidates_fn=failure_horizon),
         des.FnSource(des.K_RECOVERY, "recovery",
-                     lambda s: s.next_recover, _identity),
-        des.FnSource(des.K_TRACE, "trace",
-                     lambda s: torch.full_like(s.t, INF).reshape(1),
-                     _identity),
+                     lambda s: s.next_recover, recovery_apply,
+                     horizon_candidates_fn=recovery_horizon),
+        # every pending trace instant cuts the speculation horizon, so
+        # trace rows fire only in committing supersteps
+        des.FnSource(des.K_TRACE, "trace", trace_candidates, trace_apply),
         des.FnSource(des.K_RESERVATION, "reservation",
                      lambda s: s.t.new_zeros((0,)), _identity),
         des.FnSource(des.K_MARKET, "market",
@@ -953,17 +1223,22 @@ def _checked_scan(state, fleet, params, n_resources, r_pad, slab):
     return _event_kernels.event_scan_checked_ref(*args)
 
 
-def _slab_after(state, ctx, scan, fleet, n_resources, r_pad):
+def _slab_after(state, ctx, scan, fired_interfering: bool, fleet,
+                n_resources, r_pad):
     """The slab carry after a superstep: survivors' ranks shift down by
     the per-row completed count; the carry stays valid unless a
-    newly-RUNNING job landed on a time-shared row (no interfering
-    source runs on this slice)."""
+    newly-RUNNING job landed on a time-shared row or an interfering
+    source (FAILURE, RECOVERY, TRACE: they rewrite slots and row masks)
+    fired, which the host knows from the flags it read."""
     n_comp_r = _pad(ctx["n_comp_r"], r_pad - n_resources, 0)
     rank = scan[4] - n_comp_r[:, None].to(torch.float32)
     res = torch.clamp(state.g.resource.to(torch.int64), 0, n_resources - 1)
     ts_newly = ctx["newly"] & (fleet.policy[res] == TIME_SHARED)
+    ok = ~ts_newly.any()
+    if fired_interfering:
+        ok = torch.zeros_like(ok)
     qrank, qok = ctx["qcarry"]
-    return (rank, ~ts_newly.any(), qrank, qok)
+    return (rank, ok, qrank, qok)
 
 
 def _step_commit(state, fleet, params, n_users, slab):
@@ -991,6 +1266,19 @@ def _step_commit(state, fleet, params, n_users, slab):
     state = _advance_jobs(state, ctx, t_next, any_event, n_resources)
     pos_of = {s.kind: i for i, s in enumerate(sources)}
     ctx["fired_b"] = fired[pos_of[des.K_BROKER]]
+    interfering = False
+    if host.strikes or host.trace:
+        # one read of every source's flag stands for the FAILURE, TRACE
+        # and BROKER reads; RECOVERY's holds unless a failure fired (a
+        # repair may round to zero time and recover in this superstep)
+        flags = host.read_flags(fired)
+        due = {k: flags[pos_of[k]] for k in (des.K_FAILURE, des.K_TRACE,
+                                             des.K_BROKER)}
+        if not due[des.K_FAILURE]:
+            due[des.K_RECOVERY] = flags[pos_of[des.K_RECOVERY]]
+        ctx["due"] = due
+        interfering = any(flags[pos_of[k]] for k in (
+            des.K_FAILURE, des.K_RECOVERY, des.K_TRACE))
 
     # priority order, except BROKER before ARRIVAL
     order = list(range(len(sources)))
@@ -1014,27 +1302,27 @@ def _step_commit(state, fleet, params, n_users, slab):
     state, finished = _bookkeep(state, fleet, params, n_users, kinds,
                                 counts, whos, t_next)
     host.n_steps += 1
-    return state, _slab_after(state, ctx, ctx["scan"], fleet, n_resources,
-                              r_pad), finished
+    return state, _slab_after(state, ctx, ctx["scan"], interfering, fleet,
+                              n_resources, r_pad), finished
 
 
 def _speculative_step(state, fleet, params, n_users, t_safe, slab,
                       finished):
     """One speculative micro-superstep: applies the earliest pending
-    COMPLETION / NETWORK-drain / RETURN batch if, and only if, it lies
-    strictly inside the speculation horizon ``t_safe`` (staging drains,
-    which mature an ARRIVAL, cut the horizon, so only result-return
-    drains fire here).  (The reference's micro-steps also fire
-    FAILURE/RECOVERY strikes; here those streams are +inf.)  Returns ``(state, fired, slab', finished')``; when nothing
-    fires the state is untouched and the scan just made seeds the
-    carry."""
+    COMPLETION / FAILURE / RECOVERY / NETWORK-drain / RETURN batch if,
+    and only if, it lies strictly inside the speculation horizon
+    ``t_safe`` (strikes on resources with resident work and staging
+    drains, which mature an ARRIVAL, cut the horizon, so only strikes on
+    idle resources and result-return drains fire here).  Returns
+    ``(state, fired, slab', finished')``; when nothing fires the state
+    is untouched and the scan just made seeds the carry."""
     n_resources = fleet.r
     r_pad = state.row_gridlet.shape[0]
     host = state.host
     ctx = {}
     sources = _make_sources(fleet, params, n_users, ctx)
     by_kind = {s.kind: s for s in sources}
-    comp, ret = by_kind[des.K_COMPLETION], by_kind[des.K_RETURN]
+    ret = by_kind[des.K_RETURN]
     net = _net_on(state)
 
     ctx["scan"] = _checked_scan(state, fleet, params, n_resources, r_pad,
@@ -1047,13 +1335,32 @@ def _speculative_step(state, fleet, params, n_users, t_safe, slab,
     tmin = ctx["scan"][1].min()
     t_comp = torch.where(tmin < _BIG, state.t + tmin, INF)
     t_next = torch.minimum(t_comp, ret.next_time(state))
+    strikes = host.strikes
+    f_due = r_due = False
+    if strikes:
+        t_next = torch.minimum(t_next, state.next_fail.min())
+        t_next = torch.minimum(t_next, state.next_recover.min())
     if net:
         tmin_l = ctx["net_scan"][1].min()
         t_next = torch.minimum(
             t_next, torch.where(tmin_l < _BIG, state.t + tmin_l, INF))
     fire = (torch.isfinite(t_next) & (t_next < t_safe) &
             ~finished.all())
-    if not host.read(fire):
+    if strikes:
+        # the strikes' due flags ride on the fire read; RECOVERY's is
+        # read again after a failure (a zero-time repair)
+        f_due = (torch.isfinite(state.next_fail) &
+                 (state.next_fail <= t_next)).any()
+        r_due = (torch.isfinite(state.next_recover) &
+                 (state.next_recover <= t_next)).any()
+        alive, f_due, r_due = host.read_flags(torch.stack([fire, f_due,
+                                                           r_due]))
+        ctx["due"] = {des.K_FAILURE: f_due}
+        if not f_due:
+            ctx["due"][des.K_RECOVERY] = r_due
+    else:
+        alive = host.read(fire)
+    if not alive:
         return state, False, (ctx["scan"][4],
                               torch.tensor(True, device=t_next.device),
                               slab[2], slab[3]), finished
@@ -1061,16 +1368,19 @@ def _speculative_step(state, fleet, params, n_users, t_safe, slab,
     if net:
         state = _advance_transfers(state, ctx, t_next, fire)
     state = _advance_jobs(state, ctx, t_next, fire, n_resources)
-    # the committing superstep's apply order, restricted to these sources
-    state = comp.apply(state, t_next)     # completions + queue admissions
+    # the committing superstep's apply order, restricted to these
+    # sources: COMPLETION > FAILURE > RECOVERY > NETWORK > RETURN
+    spec_kinds = [des.K_COMPLETION]
+    if strikes:
+        spec_kinds += [des.K_FAILURE, des.K_RECOVERY]
     if net:
-        state = by_kind[des.K_NETWORK].apply(state, t_next)
-    state = ret.apply(state, t_next)      # incl. zero-delay returns
+        spec_kinds.append(des.K_NETWORK)
+    spec_kinds.append(des.K_RETURN)
+    for kind in spec_kinds:
+        state = by_kind[kind].apply(state, t_next)
     state = _alloc_newly(state, ctx, n_resources, r_pad)
     if net:
         state = _enqueue_new_transfers(state, params, n_resources, r_pad)
-    spec_kinds = ((des.K_COMPLETION, des.K_NETWORK, des.K_RETURN) if net
-                  else (des.K_COMPLETION, des.K_RETURN))
     kinds = torch.tensor(spec_kinds, dtype=torch.int32,
                          device=t_next.device)
     counts = torch.stack([ctx[("count", k)] for k in spec_kinds])
@@ -1079,8 +1389,10 @@ def _speculative_step(state, fleet, params, n_users, t_safe, slab,
     state, finished = _bookkeep(state, fleet, params, n_users, kinds,
                                 counts, whos, t_next)
     host.n_spec += 1
-    return state, True, _slab_after(state, ctx, ctx["scan"], fleet,
-                                    n_resources, r_pad), finished
+    # a strike restructures rows and slots: the next scan reseeds
+    interfering = f_due or r_due
+    return state, True, _slab_after(state, ctx, ctx["scan"], interfering,
+                                    fleet, n_resources, r_pad), finished
 
 
 def _speculation_horizon(state, fleet, params, n_users):
@@ -1128,9 +1440,11 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
     """``max_jobs`` bounds concurrently RUNNING gridlets per resource
     (the J axis of the job-slot table; default N); ``net_cap`` sizes
     the transfer-slot table (T per link, capped at N; 0 = analytic
-    links).  With no failure stream ported, ``next_fail`` is +inf (the
-    reference's exponential draw of a zero MTBF) and no random key is
-    kept."""
+    links).  ``params`` seeds the failure stream: ``key, k1 =
+    split(fail_key)``, the first failure ``exponential(k1, mtbf)``.  The
+    run's static gates are fixed here (``HostCounts``): with no ``mtbf >
+    0`` nothing is drawn, ``next_fail`` is the draw's +inf and the key is
+    never used."""
     n = gridlets.n
     dev = gridlets.length_mi.device
     j_cap = n if max_jobs is None else min(max_jobs, n)
@@ -1144,6 +1458,13 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
     zero_i = full((), 0, torch.int32)
     width = int(torch.bincount(gridlets.user.to(torch.int64)).max()) \
         if n else 0
+    strikes = params is not None and bool((params.mtbf > 0).any())
+    trace = params is not None and params.fault_time is not None
+    key = rand.PRNGKey(0, dev) if params is None else params.fail_key
+    next_fail = full((r,), INF)
+    if strikes:
+        key, k1 = rand.split(key)
+        next_fail = rand.exponential(k1, params.mtbf)
     return SimState(
         t=full((), 0.0),
         g=gridlets,
@@ -1158,11 +1479,13 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
         next_sched=full((), first_sched),
         term_time=full((n_users,), INF),
         res_up=full((r,), True, torch.bool),
-        next_fail=full((r,), INF),
+        next_fail=next_fail,
         next_recover=full((r,), INF),
         fail_since=full((r,), INF),
         downtime=full((r,), 0.0),
         recovered_at=full((r,), -INF),
+        trace_ptr=zero_i,
+        rng_key=key,
         price=fleet.cost_per_mi().to(torch.float32).broadcast_to(
             (r,)).clone(),
         next_market=full((), INF),
@@ -1172,7 +1495,8 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
         trace_t=full((TRACE_LEN,), INF),
         trace_kind=full((TRACE_LEN,), -1, torch.int32),
         trace_who=full((TRACE_LEN,), -1, torch.int32),
-        host=HostCounts(n_reseeds=zero_i.clone()),
+        host=HostCounts(n_reseeds=zero_i.clone(), strikes=strikes,
+                        trace=trace),
         width=width,
     )
 
@@ -1200,8 +1524,6 @@ def _finalize(state) -> SimResult:
 
 
 def _check_params(params: SimParams):
-    if bool((params.mtbf > 0).any()):
-        raise NotImplementedError("failure streams are not ported yet")
     if int(params.pricing_model) != econ_mod.PRICE_STATIC:
         raise NotImplementedError("dynamic pricing is not ported yet")
     if bool(params.plan_ahead):

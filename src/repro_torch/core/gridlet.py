@@ -75,16 +75,18 @@ def make_batch(length_mi, in_bytes=None, out_bytes=None, user=None,
     )
 
 
-def task_farm(gen: torch.Generator, n_jobs: int, n_users: int = 1,
+def task_farm(key: torch.Tensor, n_jobs: int, n_users: int = 1,
               base_mi: float = 10_000.0, noise: float = 0.10,
               in_bytes: float = 0.0, out_bytes: float = 0.0,
-              device="cpu") -> GridletBatch:
+              partitionable: bool = True, device="cpu") -> GridletBatch:
     """Paper section 5.2 application model: ``n_jobs`` Gridlets per
     user, each ``base_mi`` MI plus a 0..``noise`` positive variation
-    drawn from ``gen``."""
+    drawn from ``key`` (``rand.PRNGKey``; ``partitionable`` picks the
+    threefry counter layout, as in :mod:`rand`)."""
     n = n_jobs * n_users
-    mi = rand.real(gen, torch.full((n,), base_mi, dtype=torch.float32,
-                                   device=device), 0.0, noise)
+    mi = rand.real(key, torch.full((n,), base_mi, dtype=torch.float32,
+                                   device=device), 0.0, noise,
+                   partitionable)
     user = torch.repeat_interleave(
         torch.arange(n_users, dtype=torch.int32, device=device), n_jobs)
     return make_batch(mi, in_bytes=in_bytes, out_bytes=out_bytes,

@@ -25,15 +25,103 @@ times and spend is bitwise:
   summed in order, then reduces the window sums the same way
   (:func:`ordered_sum`).
 
+* **Transcendentals.**  XLA:CPU expands ``log1p`` into f32 arithmetic
+  of its own (:func:`log1p`, with the fused multiply-adds its machine
+  code has), and its ``exp2`` misses ``2**k`` by a few ulp for some
+  integer ``k`` (:data:`EXP2_BITS`), so neither ``torch.log1p`` nor
+  ``torch.exp2`` stands in for them.
+
 Division by a Python number is avoided everywhere on the card: PyTorch's
 CUDA ``true_divide`` by a CPU scalar multiplies by the reciprocal.
 """
 from __future__ import annotations
 
+import struct
+
 import torch
 
 _TILE = 16        # XLA:CPU's cumulative-reduction tile
 _WINDOW = 32      # XLA:CPU's tree-reduction window
+
+
+def _f32(bits: int) -> float:
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+# XLA:CPU's f32 exp2(k) for k = 0..30 (tests/data/port_ref_rand.json):
+# 2**k exactly except k in {13, 15, 17, 19, 21, 23, 25, 26, 27, 29, 30},
+# which miss by 4 to 15 ulp.
+EXP2_BITS = (
+    0x3F800000, 0x40000000, 0x40800000, 0x41000000, 0x41800000,
+    0x42000000, 0x42800000, 0x43000000, 0x43800000, 0x44000000,
+    0x44800000, 0x45000000, 0x45800000, 0x46000004, 0x46800000,
+    0x46FFFFF8, 0x47800000, 0x48000004, 0x48800000, 0x48FFFFF9,
+    0x49800000, 0x4A000004, 0x4A800000, 0x4AFFFFF9, 0x4B800000,
+    0x4C000004, 0x4C800008, 0x4CFFFFF9, 0x4D800000, 0x4E000004,
+    0x4E7FFFF1)
+
+
+def exp2_table(k):
+    """XLA:CPU's ``exp2`` of the integer-valued exponents ``k`` (int,
+    clamped to the table's 0..30) as f32."""
+    table = torch.tensor([_f32(b) for b in EXP2_BITS], dtype=torch.float32,
+                         device=k.device)
+    return table[torch.clamp(k.to(torch.int64), 0, len(EXP2_BITS) - 1)]
+
+
+# log1p(x) for |x| < sqrt(2) - 1: x - x^2/2 + x^3 * P(x) / Q(x) (Cephes),
+# both polynomials by Horner from the leading coefficient.
+_LOG1P_SMALL = _f32(0x3ED413CD)            # 0.41421357
+_LOG1P_Q = tuple(_f32(b) for b in (
+    0x3F800000, 0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3,
+    0x43586D8A, 0x42707982))
+_LOG1P_P = tuple(_f32(b) for b in (
+    0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76,
+    0x426473AD, 0x41A05101))
+# log(y) = e * ln2 + log(m), m in [sqrt(1/2), sqrt(2)): three interleaved
+# Horner chains in m - 1, ln2 split in a high and a low part.
+_LOG_SQRTHF = _f32(0x3F3504F3)
+_LOG_P = tuple(tuple(_f32(b) for b in chain) for chain in (
+    (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A),
+    (0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50),
+    (0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)))
+_LN2_LO = _f32(0xB95E8083)
+_LN2_HI = _f32(0x3F318000)
+
+
+def _log(y):
+    """XLA:CPU's f32 ``log`` of positive finite ``y``."""
+    bits = torch.clamp_min(y, _f32(0x00800000)).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _LOG_SQRTHF
+    e = torch.where(low, e - 1.0, e)
+    x = (m + -1.0) + torch.where(low, m, 0.0)
+    z = x * x
+    x3 = z * x
+    p = []
+    for c0, c1, c2 in _LOG_P:
+        p.append(fma(x, fma(x, c0, c1), c2))
+    y1 = fma(x3, p[0], p[1])
+    y1 = fma(x3, y1, p[2])
+    y1 = fma(x3, y1, e * _LN2_LO)
+    r = fma(-0.5, z, x) + y1
+    return fma(e, _LN2_HI, r)
+
+
+def log1p(x):
+    """``jnp.log1p`` of f32 ``x`` > -1 as XLA:CPU compiles it: a rational
+    function for |x| < sqrt(2) - 1, else ``log(1 + x)``; the fused
+    multiply-adds are the ones its machine code has."""
+    x2 = x * x
+    q = torch.full_like(x, _LOG1P_Q[0])
+    for c in _LOG1P_Q[1:]:
+        q = fma(q, x, c)
+    p = torch.full_like(x, _LOG1P_P[0])
+    for c in _LOG1P_P[1:]:
+        p = fma(p, x, c)
+    small = fma(x2, -0.5, x2 * x * (p / q)) + x
+    return torch.where(x.abs() < _LOG1P_SMALL, small, _log(1.0 + x))
 
 
 def fma(a, b, c):

@@ -5,8 +5,10 @@ of ``repro.core.simulation``).
 clock, collect statistics -- one call, on the card unless the caller
 passes ``device="cpu"``.  ``Scenario`` keeps the reference's knobs and
 defaults; the ones that would switch on a source the port does not run
-yet (failures, reservations, dynamic pricing, plan-ahead, fault traces)
-raise ``NotImplementedError``, as do the sweep drivers.  The network
+yet (reservations, dynamic pricing, plan-ahead) raise
+``NotImplementedError``, as do the sweep drivers.  The failure streams
+(``mtbf``/``mttr``, seeded from ``seed``), the fault trace and the
+fault-tolerant broker's knobs run as in the reference.  The network
 knobs (``baud_rate``, ``bg_flows``, ``trunk_*``) take effect with
 ``net_cap != 0``.
 """
@@ -17,7 +19,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from . import economy, engine, numerics
+from . import economy, engine, numerics, rand
 from .segments import segment_count
 from .types import DONE, OPT_COST, replace, resolve_device, to_device
 
@@ -143,6 +145,7 @@ def _scenario_params(fleet, deadline, budget, opt, n_users,
         opt if s.policy is None else s.policy,
         n_users, fleet.r,
         mtbf=s.mtbf, mttr=s.mttr, reservations=s.reservations,
+        fail_key=rand.PRNGKey(s.seed, device),
         link_baud=(fleet.baud_rate if s.baud_rate is None
                    else s.baud_rate),
         bg_flows=s.bg_flows,

@@ -1,14 +1,16 @@
 """Regenerate the reference results the PyTorch port is held against:
-tests/data/port_ref_main.json (the main path) and
-tests/data/port_ref_net.json (the contended network).
+tests/data/port_ref_main.json (the main path),
+tests/data/port_ref_net.json (the contended network),
+tests/data/port_ref_fail.json (failures, fault traces, retries) and
+tests/data/port_ref_rand.json (the PRNG and XLA:CPU's transcendentals).
 
 Run from the repo root with the JAX reference on the CPU:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net|fail|rand]
 
-(no argument writes both).  port_ref_main.json holds three cells of
-``benchmarks/engine_bench.py``: 1u_200j and 20u_100j on the WWG fleet,
-4u_512j on the deep 2 x 80-PE fleet; gridlets from
+(no argument writes all four).  port_ref_main.json holds four cells of
+``benchmarks/engine_bench.py``: 1u_200j, 20u_100j and 200u_10j on the
+WWG fleet, 4u_512j on the deep 2 x 80-PE fleet; gridlets from
 ``task_farm(PRNGKey(3))``, cost optimisation, the engine's default
 batch.  port_ref_net.json holds the ``engine_20u_100j_net`` row
 (200 KB in, 100 KB out per gridlet, 28,000 B/s links with one
@@ -16,27 +18,44 @@ background flow, the transfer table auto-sized), the same with the
 first five resources behind one 56,000 B/s trunk (``_trunknet``), both
 again at 4 users x 25 jobs, and ``direct_net``: ``run_direct`` with
 payloads and staggered dispatch instants on the Table 1 resource.
+port_ref_fail.json holds the dynamic-resource rows of the same bench:
+``engine_20u_100j_fail`` (MTBF 500, MTTR 25, seed 1) and
+``engine_20u_100j_trunk`` (R0-R4 on one trunk, the trace cutting it at
+t=500 and restoring it at 600, retry limit 8, backoff 1, cooldown 5),
+and for the CPU replay 4 users x 25 jobs with MTBF 100 (``4u_25j_fail``),
+with the trace on a trunk that holds R8 (``4u_25j_trunk``) and with MTBF
+100 over the 4u_25j_net links (``4u_25j_net_fail``); each records the
+failure counters, the downtime and every gridlet's retry state too, and
+must fail at least one gridlet.  port_ref_rand.json holds PRNGKey /
+split chains and 4096-word bits, uniform and exponential draws for a
+few seeds in both threefry layouts, XLA:CPU's exp2 on 0..30 and the
+SHA-256 of its ``-log1p(-u)`` over all 2**23 f32 uniforms.
 Every float (inputs and results) is stored as its uint32 bit pattern,
 so the comparison is bitwise and needs no JAX.
 """
+import hashlib
 import json
 import os
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
-from repro.core import engine, gridlet, resource, simulation, types
+from repro.core import engine, gridlet, rand, resource, simulation, types
 
 HERE = os.path.dirname(__file__)
 OUT = os.path.join(HERE, "port_ref_main.json")
 OUT_NET = os.path.join(HERE, "port_ref_net.json")
+OUT_FAIL = os.path.join(HERE, "port_ref_fail.json")
+OUT_RAND = os.path.join(HERE, "port_ref_rand.json")
 
 CELLS = (
     # name, n_users, n_jobs_per_user, fleet, deadline, budget
     ("1u_200j", 1, 200, "wwg", 2000.0, 22000.0),
     ("20u_100j", 20, 100, "wwg", 2000.0, 22000.0),
     ("4u_512j", 4, 512, "deep_2x80pe", 2000.0, 500000.0),
+    ("200u_10j", 200, 10, "wwg", 2000.0, 22000.0),
 )
 
 
@@ -131,18 +150,21 @@ NET_CELLS = (
 )
 
 
-def net_cell(name, n_users, n_jobs, knobs, deadline=2000.0,
-             budget=22000.0):
-    """``run_experiment(..., net_cap=None)`` spelled out on the WWG
-    fleet, payloads on every gridlet."""
+def scenario_cell(name, n_users, n_jobs, knobs, net=True, deadline=2000.0,
+                  budget=22000.0):
+    """``run_experiment(..., scenario=Scenario(**knobs))`` spelled out on
+    the WWG fleet: the cell's record and the engine's result.  ``net``:
+    payloads on every gridlet and the auto-sized transfer table
+    (``net_cap=None``); else the default analytic links, no payloads."""
     fleet = resource.wwg_fleet()
+    payload = dict(in_bytes=IN_BYTES, out_bytes=OUT_BYTES) if net else {}
     g = gridlet.task_farm(jax.random.PRNGKey(3), n_jobs=n_jobs,
-                          n_users=n_users, in_bytes=IN_BYTES,
-                          out_bytes=OUT_BYTES)
+                          n_users=n_users, **payload)
     scenario = simulation.Scenario(**knobs)
     params = simulation._scenario_params(fleet, deadline, budget,
                                          types.OPT_COST, n_users, scenario)
-    net_cap = simulation.safe_net_cap(g, params, fleet, n_users)
+    net_cap = simulation.safe_net_cap(g, params, fleet, n_users) if net \
+        else 0
     max_events = simulation._max_events(g.n, n_users,
                                         deadline * 2.0 + 100.0, 1.0)
     res = engine.run(g, fleet, params, n_users, max_events,
@@ -156,8 +178,89 @@ def net_cell(name, n_users, n_jobs, knobs, deadline=2000.0,
         "scenario": knobs,
         "fleet": _fleet_fields(fleet, "wwg"),
         "length_mi": _bits(g.length_mi),
-        "in_bytes": _bits(g.in_bytes), "out_bytes": _bits(g.out_bytes),
+        **({"in_bytes": _bits(g.in_bytes), "out_bytes": _bits(g.out_bytes)}
+           if net else {}),
         "result": _result(r, res),
+    }, res
+
+
+# The dynamic-resource rows of benchmarks/engine_bench.py and their CPU
+# sizes.  At 4 users x 25 jobs all the work lands on R8, so the small
+# trace cell puts R8 on the cut trunk, and the small failure cells take
+# MTBF 100 (MTBF 500 fails nothing there).
+FAIL = dict(mtbf=500.0, mttr=25.0, seed=1)
+SMALL_FAIL = dict(mtbf=100.0, mttr=25.0, seed=1)
+RETRY = dict(retry_limit=8, backoff_base=1.0, blacklist_cooldown=5.0)
+FAIL_CELLS = (
+    # name, n_users, n_jobs_per_user, scenario knobs, payloads and links
+    ("20u_100j_fail", 20, 100, FAIL, False),
+    ("20u_100j_trunk", 20, 100, dict(
+        trunk_of=[0] * 5 + [-1] * 6,
+        fault_trace=[(500.0, 11, 0), (600.0, 11, 1)], **RETRY), False),
+    ("4u_25j_fail", 4, 25, SMALL_FAIL, False),
+    ("4u_25j_trunk", 4, 25, dict(
+        trunk_of=[-1] * 8 + [0, 0, -1],
+        fault_trace=[(300.0, 11, 0), (400.0, 11, 1)], **RETRY), False),
+    ("4u_25j_net_fail", 4, 25, dict(NET, **SMALL_FAIL), True),
+)
+
+
+def fail_cell(name, n_users, n_jobs, knobs, net):
+    """A scenario cell with the failure counters, the downtime and every
+    gridlet's retry state recorded too; it must fail a gridlet."""
+    out, res = scenario_cell(name, n_users, n_jobs, knobs, net)
+    out["result"].update(
+        n_failed=int(res.n_failed), n_resubmits=int(res.n_resubmits),
+        downtime=_bits(res.downtime),
+        n_retries=_ints(res.gridlets.n_retries),
+        retry_at=_bits(res.gridlets.retry_at))
+    assert int(res.n_failed) > 0, f"{name} fails no gridlet"
+    assert float(np.asarray(res.downtime).max()) > 0.0, name
+    return out
+
+
+RAND_SEEDS = (0, 1, 3, 7)
+N_WORDS = 4096
+
+
+def rand_layout():
+    """The PRNG of the current threefry layout: per seed the key, four
+    successive ``split`` pairs, ``split(key, 3)``, and N_WORDS bits,
+    uniforms and unit-mean exponentials (the engine's jitted draw)."""
+    out = {}
+    for seed in RAND_SEEDS:
+        key = jax.random.PRNGKey(seed)
+        chain, k = [], key
+        for _ in range(4):
+            k, sub = jax.random.split(k)
+            chain.append(_ints(k) + _ints(sub))
+        out[str(seed)] = {
+            "key": _ints(key), "chain": chain,
+            "split3": _ints(jax.random.split(key, 3)),
+            "bits": _ints(jax.random.bits(key, (N_WORDS,), jnp.uint32)),
+            "uniform": _bits(jax.random.uniform(key, (N_WORDS,))),
+            "exponential": _bits(jax.jit(rand.exponential)(
+                key, np.ones(N_WORDS, np.float32))),
+        }
+    return out
+
+
+def rand_ref():
+    """port_ref_rand.json's content (both layouts, exp2, log1p)."""
+    layouts = {}
+    for flag in (True, False):
+        with jax.threefry_partitionable(flag):
+            layouts[str(flag)] = rand_layout()
+    mant = np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000)
+    u = mant.view(np.float32) - np.float32(1.0)
+    e = np.asarray(jax.jit(lambda u: -jnp.log1p(-u))(u))
+    exp2 = jax.jit(jnp.exp2)(np.arange(31, dtype=np.float32))
+    return {
+        "partitionable": layouts,
+        "exp2": _bits(exp2),
+        "log1p_sha256": hashlib.sha256(e.tobytes()).hexdigest(),
+        "log1p_about": "SHA-256 of the f32 bytes of jitted -log1p(-u), "
+                       "u = the 2**23 uniforms in mantissa order",
     }
 
 
@@ -209,7 +312,7 @@ def _header(about):
     }
 
 
-def main(which=("main", "net")):
+def main(which=("main", "net", "fail", "rand")):
     if "main" in which:
         ref = dict(_header("JAX reference results for the port's "
                            "main-path cells"),
@@ -218,7 +321,7 @@ def main(which=("main", "net")):
             json.dump(ref, f, separators=(",", ":"))
         print(f"wrote {OUT}")
     if "net" in which:
-        cells = {c[0]: net_cell(*c) for c in NET_CELLS}
+        cells = {c[0]: scenario_cell(*c)[0] for c in NET_CELLS}
         # the trunk cap binds: the capped runs differ from the uncapped
         for users in ("20u_100j", "4u_25j"):
             a = cells[f"{users}_net"]["result"]
@@ -233,7 +336,20 @@ def main(which=("main", "net")):
         with open(OUT_NET, "w") as f:
             json.dump(ref, f, separators=(",", ":"))
         print(f"wrote {OUT_NET}")
+    if "fail" in which:
+        ref = dict(_header("JAX reference results for the port's "
+                           "dynamic-resource cells"),
+                   cells={c[0]: fail_cell(*c) for c in FAIL_CELLS})
+        with open(OUT_FAIL, "w") as f:
+            json.dump(ref, f, separators=(",", ":"))
+        print(f"wrote {OUT_FAIL}")
+    if "rand" in which:
+        ref = dict(_header("jax.random draws and XLA:CPU transcendentals "
+                           "for the port's threefry"), **rand_ref())
+        with open(OUT_RAND, "w") as f:
+            json.dump(ref, f, separators=(",", ":"))
+        print(f"wrote {OUT_RAND}")
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("main", "net"))
+    main(tuple(sys.argv[1:]) or ("main", "net", "fail", "rand"))

@@ -1,9 +1,13 @@
 """The port's leaf modules against the JAX reference: fleet tables,
 calendar, economy, network delays, segmented ranks and sums, the
-reference-order float helpers, the gridlet table and the event queue.
-Inputs are numpy arrays made from a seed; floats compare bit for bit."""
+reference-order float helpers, the threefry PRNG and XLA:CPU's log1p and
+exp2, the gridlet table and the event queue.  Inputs are numpy arrays
+made from a seed; floats compare bit for bit."""
 import dataclasses
 import gc
+import hashlib
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from repro.core import des as jdes
 from repro.core import economy as jecon
 from repro.core import gridlet as jgrid
 from repro.core import network as jnet
+from repro.core import rand as jrand
 from repro.core import resource as jres
 from repro.core import segments as jseg
 from repro.core import types as jtypes
@@ -305,22 +310,27 @@ def _check_gridlet_batch():
 
 
 def _check_task_farm_and_real_draws():
-    gen = torch.Generator().manual_seed(3)
-    farm = gridlet.task_farm(gen, n_jobs=50, n_users=4)
-    assert farm.n == 200
-    assert torch.equal(farm.user, torch.arange(4, dtype=torch.int32)
-                       .repeat_interleave(50))
+    """``task_farm`` and ``real`` on a key, bitwise the reference's in
+    both threefry layouts (the gate: task_farm(PRNGKey(3), 100, 20))."""
+    for part in (True, False):
+        with jax.threefry_partitionable(part):
+            ref = jgrid.task_farm(jax.random.PRNGKey(3), n_jobs=100,
+                                  n_users=20)
+            d = np.linspace(1.0, 1e4, 1000).astype(np.float32)
+            real = {s: jrand.real_named(jax.random.PRNGKey(1), d, s)
+                    for s in ("exec", "net_io", "none")}
+        farm = gridlet.task_farm(rand.PRNGKey(3), n_jobs=100, n_users=20,
+                                 partitionable=part)
+        for name, arr in _leaves(ref).items():
+            _eq(getattr(farm, name), arr, f"{part} {name}")
+        for situation, want in real.items():
+            _eq(rand.real_named(rand.PRNGKey(1), torch.from_numpy(d),
+                                situation, partitionable=part), want,
+                f"{part} real {situation}")
     assert bool((farm.length_mi >= 10_000.0).all())
     assert bool((farm.length_mi < 11_000.0).all())
-    again = gridlet.task_farm(torch.Generator().manual_seed(3), 50, 4)
-    assert torch.equal(farm.length_mi, again.length_mi)
-    e = rand.exponential(torch.Generator().manual_seed(0),
-                         torch.tensor([0.0, 5.0, -1.0]))
+    e = rand.exponential(rand.PRNGKey(0), torch.tensor([0.0, 5.0, -1.0]))
     assert torch.isinf(e[0]) and torch.isfinite(e[1]) and torch.isinf(e[2])
-    d = torch.full((1000,), 100.0)
-    x = rand.real_named(torch.Generator().manual_seed(1), d, "net_io")
-    assert bool((x >= 95.0).all()) and bool((x <= 105.0).all())
-    assert torch.equal(rand.real_named(torch.Generator(), d, "none"), d)
 
 
 def _check_event_queue():
@@ -384,6 +394,85 @@ def test_segments_and_float_order_match_xla():
     _check_ordered_sum()
     _check_segment_sum_and_scatter_add_fold()
     _check_fma()
+
+
+REF_RAND = os.path.join(os.path.dirname(__file__), "data",
+                        "port_ref_rand.json")
+SEEDS = (0, 1, 3, 7, 42, 2 ** 31 - 1, -1, 123456789)
+
+
+def _check_threefry_layout(part):
+    """PRNGKey, split, bits, uniform and the jitted exponential of the
+    current jax layout against the port's ``part`` layout."""
+    for seed in SEEDS:
+        key, pkey = jax.random.PRNGKey(seed), rand.PRNGKey(seed)
+        _eq(pkey, np.asarray(key).astype(np.int64), f"key {seed}")
+        for num in (2, 3, 5):
+            _eq(rand.split(pkey, num, part),
+                np.asarray(jax.random.split(key, num)).astype(np.int64),
+                f"split {seed} {num}")
+        for n in (1, 2, 11, 4096):
+            _eq(rand.random_bits(pkey, (n,), part),
+                np.asarray(jax.random.bits(key, (n,), jnp.uint32)).astype(
+                    np.int64), f"bits {seed} {n}")
+            _eq(rand.uniform(pkey, (n,), part),
+                jax.random.uniform(key, (n,)), f"uniform {seed} {n}")
+            mean = np.linspace(-1.0, 500.0, n).astype(np.float32)
+            _eq(rand.exponential(pkey, torch.from_numpy(mean), part),
+                jax.jit(jrand.exponential)(key, mean),
+                f"exponential {seed} {n}")
+
+
+def test_threefry_matches_jax_random_in_both_layouts():
+    """The torch threefry2x32 against ``jax.random`` bit for bit, in the
+    partitionable layout (jax 0.9.0's default) and the original one,
+    and against the committed draws chip_smoke.py checks on the card."""
+    _check_threefry_layout(True)
+    with jax.threefry_partitionable(False):
+        _check_threefry_layout(False)
+    with open(REF_RAND) as f:
+        ref = json.load(f)
+    for flag, seeds in ref["partitionable"].items():
+        part = flag == "True"
+        for seed, r in seeds.items():
+            key = rand.PRNGKey(int(seed))
+            _eq(key, np.asarray(r["key"]), f"{flag} {seed} key")
+            k = key
+            for pair in r["chain"]:
+                k, sub = rand.split(k, partitionable=part)
+                _eq(torch.cat([k, sub]), np.asarray(pair), f"{seed} chain")
+            _eq(rand.split(key, 3, part).reshape(-1), np.asarray(r["split3"]),
+                f"{flag} {seed} split3")
+            n = len(r["bits"])
+            _eq(rand.random_bits(key, (n,), part), np.asarray(r["bits"]),
+                f"{flag} {seed} bits")
+            for name, got in (
+                    ("uniform", rand.uniform(key, (n,), part)),
+                    ("exponential", rand.exponential(key, torch.ones(n),
+                                                     part))):
+                _eq(got, np.asarray(r[name], np.uint32).view(np.float32),
+                    f"{flag} {seed} {name}")
+
+
+def test_exponential_log1p_and_exp2_are_xla_cpus():
+    """``rand.exponential``'s ``-log1p(-u)`` on every one of the 2**23
+    f32 uniforms against jitted JAX, bit for bit (``torch.log1p`` misses
+    by an ulp on many of them), with the SHA-256 the card checks; and the
+    backoff's exp2 table against jitted ``jnp.exp2`` on 0..30."""
+    mant = np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000)
+    u = mant.view(np.float32) - np.float32(1.0)
+    want = np.asarray(jax.jit(lambda u: -jnp.log1p(-u))(u))
+    got = torch.cat([-numerics.log1p(-c) for c in
+                     torch.from_numpy(u).split(1 << 20)]).numpy()
+    _eq(got, want, "exponential(1) over every uniform")
+    with open(REF_RAND) as f:
+        ref = json.load(f)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == ref["log1p_sha256"]
+    exp2 = np.asarray(jax.jit(jnp.exp2)(np.arange(31, dtype=np.float32)))
+    _eq(np.asarray(numerics.EXP2_BITS, np.uint32), exp2.view(np.uint32),
+        "EXP2_BITS")
+    _eq(np.asarray(ref["exp2"], np.uint32), exp2.view(np.uint32), "json")
+    _eq(numerics.exp2_table(torch.arange(31)), exp2, "exp2_table")
 
 
 def test_gridlets_and_event_queue_match_reference():

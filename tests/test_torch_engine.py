@@ -1,9 +1,11 @@
 """The port's slices end to end against the JAX reference: the Table 1
 trace through ``run_direct``, live ``run_experiment`` runs of the
 economic broker under every optimisation mode at batch 1 and 8, the
-committed 1u_200j and contended-network references replayed on the CPU,
-and batch 8 equal to batch 1.  Every integer, status, trace and float
-field is compared bit for bit."""
+committed 1u_200j, contended-network and dynamic-resource references
+replayed on the CPU, the failure, recovery, trace and failing-arrival
+applies on hand-built states, the quickstart's figures, and batch 8
+equal to batch 1.  Every integer, status, trace and float field is
+compared bit for bit."""
 import dataclasses
 import gc
 import json
@@ -20,7 +22,8 @@ from repro.core import resource as jres
 from repro.core import simulation as jsim
 from repro.core import types as jtypes
 from repro_torch import convert
-from repro_torch.core import engine, gridlet, resource, simulation, types
+from repro_torch.core import (engine, gridlet, rand, resource, simulation,
+                              types)
 
 # The tensors here are tiny: intra-op threads would only contend with
 # the other test workers.
@@ -44,6 +47,8 @@ def _release_xla_executables():
 REF = os.path.join(os.path.dirname(__file__), "data", "port_ref_main.json")
 REF_NET = os.path.join(os.path.dirname(__file__), "data",
                        "port_ref_net.json")
+REF_FAIL = os.path.join(os.path.dirname(__file__), "data",
+                        "port_ref_fail.json")
 GRIDLET_FIELDS = ("status", "resource", "assigned", "remaining", "t_event",
                   "start", "finish", "returned", "cost", "n_retries")
 COUNTERS = ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
@@ -290,9 +295,25 @@ def _check_params_carry_across():
                  "trunk_bg"):
         _eq(getattr(carried, name), getattr(ref, name), name)
         _eq(getattr(port, name), getattr(ref, name), name)
+    # the failure streams' key and the fault trace (rows out of time
+    # order: both sort them stably) with the retry knobs
+    knobs = dict(mtbf=[100.0] * 5 + [0.0] * 6, mttr=25.0, seed=5,
+                 trunk_of=[-1] * 8 + [0, 0, -1],
+                 fault_trace=[(400.0, 11, 1), (300.0, 3, 0),
+                              (300.0, 11, 0)],
+                 retry_limit=8, backoff_base=0.5, blacklist_cooldown=5.0)
+    ref = jsim._scenario_params(jfleet, 700.0, 9000.0, 0, 4,
+                                jsim.Scenario(**knobs))
+    port = simulation._scenario_params(fleet, 700.0, 9000.0, 0, 4,
+                                       simulation.Scenario(**knobs))
+    carried = convert.params(_leaves(ref))
+    for f in dataclasses.fields(engine.SimParams):
+        _eq(getattr(carried, f.name), getattr(ref, f.name), f.name)
+        _eq(getattr(port, f.name), getattr(ref, f.name), f.name)
     with pytest.raises(NotImplementedError):
         convert.params(_leaves(jsim._scenario_params(
-            jfleet, 700.0, 9000.0, 0, 4, jsim.Scenario(mtbf=100.0))))
+            jfleet, 700.0, 9000.0, 0, 4,
+            jsim.Scenario(reservations=[(0, 1, 0.0, 5.0)]))))
 
 
 # ----------------------------------------------------------------------
@@ -320,7 +341,9 @@ def _check_net_cell(c, res):
     assert bool(res.truncated) == r["truncated"]
 
 
-def _replay_net_cell(c):
+def _replay_cell(c, net_cap, batch=None):
+    """``run_experiment`` on a recorded scenario cell (payloads where the
+    cell has them) on the CPU."""
     fl = c["fleet"]
     fleet = resource.make_fleet(
         fl["num_pe"], torch.from_numpy(_f32(fl["mips_per_pe"])),
@@ -328,15 +351,22 @@ def _replay_net_cell(c):
         time_zone=torch.from_numpy(_f32(fl["time_zone"])),
         baud_rate=torch.from_numpy(_f32(fl["baud_rate"])))
     u, nj = c["n_users"], c["n_jobs_per_user"]
+    payload = {k: torch.from_numpy(_f32(c[k]))
+               for k in ("in_bytes", "out_bytes") if k in c}
     g = gridlet.make_batch(
         torch.from_numpy(_f32(c["length_mi"])),
-        in_bytes=torch.from_numpy(_f32(c["in_bytes"])),
-        out_bytes=torch.from_numpy(_f32(c["out_bytes"])),
-        user=torch.arange(u, dtype=torch.int32).repeat_interleave(nj))
-    res = simulation.run_experiment(
+        user=torch.arange(u, dtype=torch.int32).repeat_interleave(nj),
+        **payload)
+    return simulation.run_experiment(
         g, fleet, c["deadline"], c["budget"], opt=c["opt"], n_users=u,
-        batch=c["batch"], scenario=simulation.Scenario(**c["scenario"]),
-        net_cap=None, device="cpu")
+        batch=c["batch"] if batch is None else batch,
+        scenario=simulation.Scenario(**c["scenario"]), net_cap=net_cap,
+        device="cpu"), g, fleet
+
+
+def _replay_net_cell(c):
+    res, g, fleet = _replay_cell(c, None)
+    u = c["n_users"]
     _check_net_cell(c, res)
     assert c["net_cap"] == simulation.safe_net_cap(
         g, engine.default_params(c["deadline"], c["budget"], c["opt"], u,
@@ -394,8 +424,7 @@ def _check_infinite_links_equal_analytic():
 def _check_zero_bytes_equal_analytic():
     """Zero-byte payloads cannot contend: the WWG broker run with the
     subsystem on is bitwise the analytic run, counters included."""
-    farm = gridlet.task_farm(torch.Generator().manual_seed(5), n_jobs=10,
-                             n_users=3)
+    farm = gridlet.task_farm(rand.PRNGKey(5), n_jobs=10, n_users=3)
     fleet = resource.wwg_fleet()
     runs = [simulation.run_experiment(farm, fleet, 600.0, 2500.0,
                                       n_users=3, net_cap=cap, device="cpu")
@@ -446,6 +475,217 @@ def test_committed_net_reference_replays_on_cpu():
 
 
 # ----------------------------------------------------------------------
+# Dynamic resources: strikes, the fault trace, failing arrivals, retries
+# ----------------------------------------------------------------------
+
+STATE_SKIP = ("g", "host", "width")      # port-only (or nested) fields
+
+
+def _hand_state(n=40, seed=0, knobs=None):
+    """A mid-run state on the WWG fleet, the same in both packages:
+    gridlets of 4 users in every status, RUNNING ones holding job slots,
+    some resources down, the failure clocks and retry counts set."""
+    rng = np.random.RandomState(seed)
+    jfleet = jres.wwg_fleet()
+    r = jfleet.r
+    knobs = {**dict(mtbf=60.0, mttr=[0.0, 25.0] * 5 + [25.0], seed=seed,
+                    trunk_of=[0] * 3 + [-1] * 5 + [1, 1, -1],
+                    backoff_base=0.37), **(knobs or {})}
+    params = jsim._scenario_params(jfleet, 900.0, 50000.0, jtypes.OPT_COST,
+                                   4, jsim.Scenario(**knobs))
+    length = rng.uniform(5e3, 2e4, n).astype(np.float32)
+    user = np.sort(rng.randint(0, 4, n)).astype(np.int32)
+    jg = jgrid.make_batch(length, user=user)
+    status = rng.choice([jtypes.CREATED, jtypes.IN_TRANSIT, jtypes.QUEUED,
+                         jtypes.RUNNING, jtypes.RETURNING, jtypes.DONE,
+                         jtypes.FAILED], n).astype(np.int32)
+    res_of = rng.randint(0, r, n).astype(np.int32)
+    slot = np.full(n, -1, np.int32)
+    for k in range(r):
+        mine = np.nonzero((status == jtypes.RUNNING) & (res_of == k))[0]
+        slot[mine] = np.arange(mine.size, dtype=np.int32)
+    t_now = np.float32(250.0)
+    jg = jtypes.replace(
+        jg, status=status, resource=res_of, assigned=res_of,
+        remaining=(length * rng.uniform(0.1, 1.0, n)).astype(np.float32),
+        t_event=np.where(status == jtypes.IN_TRANSIT,
+                         rng.choice([200.0, 250.0, 300.0], n),
+                         np.inf).astype(np.float32),
+        cost=rng.uniform(0, 300, n).astype(np.float32),
+        n_retries=rng.randint(0, 40, n).astype(np.int32),
+        retry_at=rng.uniform(0, 240, n).astype(np.float32))
+    st = jeng.init_state(jg, jfleet, 4, params=params)
+    rg = np.full(np.asarray(st.row_gridlet).shape, -1, np.int32)
+    on = slot >= 0
+    rg[res_of[on], slot[on]] = np.nonzero(on)[0]
+    up = rng.rand(r) < 0.6
+    st = jtypes.replace(
+        st, t=t_now, slot=slot, row_gridlet=rg, res_up=up,
+        spent=rng.uniform(100, 2000, 4).astype(np.float32),
+        first_dispatch=rng.uniform(0, 200, (4, r)).astype(np.float32),
+        next_fail=np.where(up, rng.choice([150.0, 250.0, np.inf], r),
+                           np.inf).astype(np.float32),
+        next_recover=np.where(~up, rng.choice([200.0, 250.0, 400.0], r),
+                              np.inf).astype(np.float32),
+        fail_since=np.where(up, np.inf,
+                            rng.uniform(0, 200, r)).astype(np.float32),
+        downtime=rng.uniform(0, 50, r).astype(np.float32),
+        recovered_at=np.where(rng.rand(r) < 0.5, -np.inf, 100.0).astype(
+            np.float32))
+    fleet = convert.fleet(_leaves(jfleet))
+    port_params = convert.params(_leaves(params))
+    port = engine.init_state(convert.gridlets(_leaves(jg)), fleet, 4,
+                             params=port_params)
+    port = types.replace(port, g=convert.gridlets(_leaves(st.g)), **{
+        f.name: torch.from_numpy(np.array(getattr(st, f.name)).astype(
+            np.int64 if f.name == "rng_key" else
+            np.asarray(getattr(st, f.name)).dtype))
+        for f in dataclasses.fields(engine.SimState)
+        if f.name not in STATE_SKIP})
+    port.host.maybe_down = True
+    return (st, jfleet, params), (port, fleet, port_params)
+
+
+def _assert_same_state(port, ref, msg):
+    for f in dataclasses.fields(engine.SimState):
+        if f.name not in STATE_SKIP:
+            _eq(getattr(port, f.name), getattr(ref, f.name),
+                f"{msg}: {f.name}")
+    for f in dataclasses.fields(gridlet.GridletBatch):
+        _eq(getattr(port.g, f.name), getattr(ref.g, f.name),
+            f"{msg}: g.{f.name}")
+
+
+def test_fail_gridlets_backoff_matches_reference():
+    """``_fail_gridlets`` against the reference's jitted function: retry
+    counts 1..40 (XLA:CPU's exp2 up to 2**30, clamped past it), backoff
+    unit 1.0 and 0.37 (the fused multiply-add), the refund summed in
+    index order within each user."""
+    for base in (1.0, 0.37):
+        (st, _, params), (port, _, pparams) = _hand_state(
+            knobs=dict(backoff_base=base))
+        st = jtypes.replace(st, g=jtypes.replace(
+            st.g, n_retries=np.arange(40, dtype=np.int32)))
+        port = types.replace(port, g=types.replace(
+            port.g, n_retries=torch.arange(40, dtype=torch.int32)))
+        victims = np.random.RandomState(1).rand(40) < 0.8
+        victims[:2] = True
+        now = np.float32(250.0)
+        ref = jax.jit(jeng._fail_gridlets, static_argnums=2)(
+            st, victims, 4, now, params)
+        got = engine._fail_gridlets(port, torch.from_numpy(victims), 4,
+                                    torch.tensor(now), pparams)
+        _assert_same_state(got, ref, f"base {base}")
+
+
+def test_strike_and_trace_applies_match_reference():
+    """``_apply_failures`` / ``_apply_recoveries`` (one split and draw
+    each), ``_trace_masks`` / ``_apply_trace`` (trunk targets, a down
+    and an up of one resource at one instant) and the arrival at a down
+    resource, on hand-built states, against the reference's jitted
+    functions."""
+    for seed in (0, 1, 2):
+        (st, jfleet, params), (port, fleet, pparams) = _hand_state(
+            seed=seed, knobs=dict(fault_trace=[
+                (250.0, 11, 0), (250.0, 2, 1), (250.0, 12, 0),
+                (250.0, 12, 1), (260.0, 5, 0)]))
+        now = np.float32(250.0)
+        tnow = torch.tensor(now)
+        r = jfleet.r
+        due_r = np.asarray(st.next_fail) <= now
+        ref = jax.jit(jeng._apply_failures, static_argnums=(5, 6, 7))(
+            st, jfleet, params, due_r, now, 4, r, 16)
+        got = engine._apply_failures(port, fleet, pparams,
+                                     torch.from_numpy(due_r), tnow, 4, r, 16)
+        _assert_same_state(got, ref, f"{seed} failures")
+        due_r = np.asarray(st.next_recover) <= now
+        ref = jax.jit(jeng._apply_recoveries)(st, params, due_r, now)
+        got = engine._apply_recoveries(port, pparams,
+                                       torch.from_numpy(due_r), tnow)
+        _assert_same_state(got, ref, f"{seed} recoveries")
+        due = np.asarray(params.fault_time) <= now
+        masks = jeng._trace_masks(params, due, r)
+        pmasks = engine._trace_masks(pparams, torch.from_numpy(due), r)
+        for p, m in zip(pmasks, masks):
+            _eq(p, m, f"{seed} trace masks")
+        ref = jax.jit(jeng._apply_trace, static_argnums=(7, 8, 9))(
+            st, jfleet, params, due, *masks, now, 4, r, 16)
+        got = engine._apply_trace(port, fleet, pparams,
+                                  torch.from_numpy(due), *pmasks, tnow, 4,
+                                  r, 16)
+        _assert_same_state(got, ref, f"{seed} trace")
+        free_pe = np.random.RandomState(seed).randint(0, 3, r).astype(
+            np.int32)
+        arr_pre = np.asarray(st.g.t_event) < now
+        ref = jax.jit(jeng._apply_arrivals, static_argnums=(6, 7))(
+            st, jfleet, params, free_pe, arr_pre, now, 4, r)
+        got = engine._apply_arrivals(port, fleet, pparams,
+                                     torch.from_numpy(free_pe),
+                                     torch.from_numpy(arr_pre), tnow, 4, r)
+        _assert_same_state(got[0], ref[0], f"{seed} arrivals")
+        assert int(got[0].n_failed) > int(port.n_failed), seed
+        for p, m in zip(got[1:], ref[1:]):
+            _eq(p, m, f"{seed} arrival masks")
+
+
+def _check_fail_cell(c, res):
+    """Every recorded field of a dynamic-resource cell."""
+    _check_net_cell(c, res)
+    r = c["result"]
+    out = convert.to_numpy(res)
+    for name in ("n_failed", "n_resubmits"):
+        assert int(out[name]) == r[name], name
+    _eq(out["downtime"], _f32(r["downtime"]), "downtime")
+    _eq(out["gridlets"]["n_retries"], np.asarray(r["n_retries"], np.int32),
+        "n_retries")
+    _eq(out["gridlets"]["retry_at"], _f32(r["retry_at"]), "retry_at")
+    assert r["n_failed"] > 0
+
+
+@pytest.mark.parametrize("name", ["4u_25j_fail", "4u_25j_trunk",
+                                  "4u_25j_net_fail"])
+def test_committed_fail_reference_replays_on_cpu(name):
+    """The MTBF/MTTR streams (on analytic links and on contended ones)
+    and the trunk-wide fault trace with retry limit, backoff and
+    cooldown, replayed bitwise from tests/data/port_ref_fail.json."""
+    with open(REF_FAIL) as f:
+        c = json.load(f)["cells"][name]
+    _check_fail_cell(c, _replay_cell(c, c["net_cap"])[0])
+
+
+def test_fail_batch8_equals_batch1():
+    """Strikes inside the speculation horizon fire in the micro-steps:
+    batch 8 gives the batch 1 run bit for bit, and folds supersteps."""
+    with open(REF_FAIL) as f:
+        c = json.load(f)["cells"]["4u_25j_fail"]
+    one = _replay_cell(c, 0, batch=1)[0]
+    eight = _replay_cell(c, 0, batch=8)[0]
+    _assert_same_run(eight, one, counters=("n_events", "overflow",
+                                           "n_failed", "n_resubmits"))
+    _eq(eight.gridlets.retry_at, one.gridlets.retry_at, "retry_at")
+    assert int(eight.n_steps) + int(eight.n_spec) == int(one.n_steps)
+    assert int(eight.n_spec) > 0 and int(one.n_failed) > 0
+
+
+def test_quickstart_twin_on_the_port():
+    """examples/quickstart.py's figures from the port alone: the farm
+    drawn by the port's threefry in the original layout, the run on the
+    CPU."""
+    farm = gridlet.task_farm(rand.PRNGKey(7), n_jobs=200,
+                             partitionable=False)
+    fleet = resource.wwg_fleet()
+    res = simulation.run_experiment(farm, fleet, 600.0, 12000.0,
+                                    opt=types.OPT_COST, device="cpu")
+    per = res.per_resource_done[0]
+    cheapest = int(torch.argmin(fleet.cost_per_mi()))
+    assert (int(res.n_done[0]), round(float(res.spent[0])),
+            round(float(res.term_time[0])), cheapest, int(per[cheapest])) \
+        == (182, 11993, 548, 8, 38)
+    assert int(res.overflow) == 0 and not bool(res.truncated)
+    assert int(res.n_spec) > 0
+
+
+# ----------------------------------------------------------------------
 # What the port refuses
 # ----------------------------------------------------------------------
 
@@ -454,13 +694,9 @@ def _tiny():
 
 
 UNPORTED_SETTINGS = (
-    dict(scenario=simulation.Scenario(mtbf=500.0)),
     dict(scenario=simulation.Scenario(reservations=[(0, 1, 0.0, 5.0)])),
     dict(scenario=simulation.Scenario(pricing_model="auction")),
     dict(scenario=simulation.Scenario(plan_ahead=True)),
-    dict(scenario=simulation.Scenario(fault_trace=[(1.0, 0, 0)])),
-    dict(scenario=simulation.Scenario(fault_trace=[(1.0, 0, 0)],
-                                      trunk_of=[0] * 11), net_cap=None),
     dict(telemetry=16),
 )
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch
 version (bitwise, but for ssd_scan and flash_attention, held at the
-reference's kernel-vs-oracle tolerances), and small experiments (analytic links, and contended
-links behind a trunk) on the card equal to the same experiments on the
-CPU.  Marked ``gpu``; where ``torch.cuda`` is not
+reference's kernel-vs-oracle tolerances), the threefry draws on the card
+equal to the CPU's, and small experiments (analytic links, contended
+links behind a trunk, failure streams and a fault trace) on the card
+equal to the same experiments on the CPU.  Marked ``gpu``; where ``torch.cuda`` is not
 available every test skips.  Run on a card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -12,7 +13,7 @@ import math
 import pytest
 import torch
 
-from repro_torch.core import gridlet, resource, simulation
+from repro_torch.core import gridlet, rand, resource, simulation
 from repro_torch.kernels import event_scan as ek
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
@@ -425,21 +426,24 @@ def _same_runs(runs):
                            getattr(runs[1].gridlets, name))
     for a, b in zip(runs[0].trace, runs[1].trace):
         assert _bits_equal(a, b)
-    for name in ("n_steps", "n_spec", "n_events"):
+    for name in ("n_steps", "n_spec", "n_events", "n_failed",
+                 "n_resubmits"):
         assert int(getattr(runs[0], name)) == int(getattr(runs[1], name))
+    assert _bits_equal(runs[0].downtime, runs[1].downtime)
+    assert _bits_equal(runs[0].gridlets.retry_at, runs[1].gridlets.retry_at)
 
 
 def test_experiment_on_the_card_equals_cpu(cuda):
     """The broker experiment on analytic links, then on contended links
     with a trunk cap (the link kernel on the card, its plain version on
     the CPU)."""
-    gen = torch.Generator().manual_seed(5)
-    farm = gridlet.task_farm(gen, n_jobs=12, n_users=3)
+    k_farm, k_net = rand.split(rand.PRNGKey(5))
+    farm = gridlet.task_farm(k_farm, n_jobs=12, n_users=3)
     fleet = resource.wwg_fleet()
     _same_runs([simulation.run_experiment(farm, fleet, 600.0, 2500.0,
                                           n_users=3, device=d)
                 for d in ("cpu", cuda)])
-    net = gridlet.task_farm(gen, n_jobs=12, n_users=3, in_bytes=2e5,
+    net = gridlet.task_farm(k_net, n_jobs=12, n_users=3, in_bytes=2e5,
                             out_bytes=1e5)
     scenario = simulation.Scenario(baud_rate=28_000.0, bg_flows=1.0,
                                    trunk_of=[0] * 5 + [-1] * 6,
@@ -451,3 +455,32 @@ def test_experiment_on_the_card_equals_cpu(cuda):
             for d in ("cpu", cuda)]
     _same_runs(runs)
     assert ek.LAUNCHES["link_scan"] > 0
+
+
+def test_threefry_and_dynamic_resources_on_the_card_equal_cpu(cuda):
+    """split, uniform and exponential draws on the card against the CPU's
+    in both layouts, then MTBF/MTTR strikes and a trunk-wide fault trace
+    with retries: the card's runs equal the CPU's."""
+    for part in (True, False):
+        for seed in (0, 1, 7):
+            key = rand.PRNGKey(seed)
+            for fn in (lambda k: rand.split(k, 3, part),
+                       lambda k: rand.uniform(k, (4097,), part),
+                       lambda k: rand.exponential(k, torch.full(
+                           (4097,), 25.0, device=k.device), part)):
+                assert _bits_equal(fn(key), fn(key.to(cuda)))
+    farm = gridlet.task_farm(rand.PRNGKey(3), n_jobs=25, n_users=4)
+    fleet = resource.wwg_fleet()
+    for scenario in (
+            simulation.Scenario(mtbf=100.0, mttr=25.0, seed=1),
+            simulation.Scenario(trunk_of=[-1] * 8 + [0, 0, -1],
+                                fault_trace=[(300.0, 11, 0),
+                                             (400.0, 11, 1)],
+                                retry_limit=8, backoff_base=1.0,
+                                blacklist_cooldown=5.0)):
+        runs = [simulation.run_experiment(farm, fleet, 2000.0, 22000.0,
+                                          n_users=4, scenario=scenario,
+                                          device=d)
+                for d in ("cpu", cuda)]
+        _same_runs(runs)
+        assert int(runs[0].n_failed) > 0
