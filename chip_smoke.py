@@ -36,7 +36,14 @@ Phases (any failure exits non-zero before the result line):
                trunk-wide fault trace, retry limit, backoff, cooldown) and
                their CPU-size twins 4u_25j_fail, 4u_25j_trunk and
                4u_25j_net_fail, failure counters, downtime and every
-               gridlet's retry state included; every kernel of a cell's
+               gridlet's retry state included, then the grid-economy
+               cells against tests/data/port_ref_econ.json: 20u_100j_resv
+               (8 of R7's PEs booked, maintenance on R8 and R4),
+               20u_100j_plan (the same windows, cost-time optimisation,
+               the plan-ahead broker), 20u_100j_commodity and
+               20u_100j_auction (posted prices moved every 60 time
+               units), and their 4u_25j twins (windows on R8); every
+               kernel of a cell's
                path must be launched (counts zeroed just before the run,
                read just after) and the plain versions never; each cell
                prints its wall, supersteps, reseeds, host syncs and
@@ -76,8 +83,9 @@ Phases (any failure exits non-zero before the result line):
                rows (its kernels a call); the slab at every SLAB_SHAPES
                entry and at SLAB_WIDE's k;
 7. profile  -- the first WINDOW supersteps of 20u_100j, 200u_10j,
-               20u_100j_net, 20u_100j_trunknet, 20u_100j_fail and
-               20u_100j_trunk under the profiler: device busy time,
+               20u_100j_net, 20u_100j_trunknet, 20u_100j_fail,
+               20u_100j_trunk, 20u_100j_resv and 20u_100j_auction under
+               the profiler: device busy time,
                idle share, kernel launches, link_scan launches and host
                syncs per superstep, top kernels.  Last: the profiler drops
                records now and then, and more after a profile this large.
@@ -120,6 +128,7 @@ NET_CELL = "20u_100j_net"
 TRUNK_CELL = "20u_100j_trunknet"
 NET_CELLS = (NET_CELL, TRUNK_CELL)
 FAIL_CELLS = ("20u_100j_fail", "20u_100j_trunk")
+ECON_WINDOWS = ("20u_100j_resv", "20u_100j_auction")
 # cell -> (reference file, the kernels its path runs)
 PATH = ("event_scan", "event_frontier")
 NET_PATH = PATH + ("link_scan",)
@@ -132,10 +141,17 @@ CELLS = {"20u_100j": ("port_ref_main.json", PATH),
          "20u_100j_trunk": ("port_ref_fail.json", PATH),
          "4u_25j_fail": ("port_ref_fail.json", PATH),
          "4u_25j_trunk": ("port_ref_fail.json", PATH),
-         "4u_25j_net_fail": ("port_ref_fail.json", NET_PATH)}
+         "4u_25j_net_fail": ("port_ref_fail.json", NET_PATH),
+         **{f"{users}_{knob}": ("port_ref_econ.json", PATH)
+            for users in ("20u_100j", "4u_25j")
+            for knob in ("resv", "plan", "commodity", "auction")}}
 SCAN_SHAPES = ((16, 32), (16, 640), (16, 2000), (8, 640))
 LINK_SHAPES = ((16, 640), (16, 32), (8, 2000))
-WINDOW = 300          # supersteps of the main path under the profiler
+# Supersteps of each profiled window (300 until the eighth window was
+# added): the profiler's post-processing of a window's kernel records
+# is most of the profile phase's time, which the script's time limit
+# bounds.
+WINDOW = 150
 # The kernel-API phase: job tables of 20u_100j, 4u_512j and the fleet
 # scale of the reference's slab test; SSD layers (name, B, S, H, P, N,
 # chunk, x dtype, draws of dt and A: "test" as tests/test_kernels.py
@@ -193,8 +209,11 @@ REPLACES = {"event_scan": "src/repro/kernels/event_scan.py:353",
             "flash_attention": "src/repro/kernels/flash_attention.py:116"}
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def card_line():
@@ -940,11 +959,12 @@ def check_rand(dev):
     return bad
 
 
-def windows(cells, dev,
-            names=(MAIN_CELL, "200u_10j") + NET_CELLS + FAIL_CELLS):
+def windows(cells, dev, names=(MAIN_CELL, "200u_10j") + NET_CELLS +
+            FAIL_CELLS + ECON_WINDOWS):
     """The profile phase: the first WINDOW supersteps of the main cell,
-    both network cells and (by default) 200u_10j and both full-width
-    dynamic-resource cells, once unprofiled (wall, host syncs and
+    both network cells and (by default) 200u_10j, both full-width
+    dynamic-resource cells and the reservation and auction cells, once
+    unprofiled (wall, host syncs and
     link_scan launches) and once under the profiler (device busy time,
     idle share, kernel launches per superstep, top kernels)."""
     from repro_torch.core import simulation

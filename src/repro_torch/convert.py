@@ -52,14 +52,9 @@ def fleet(src, device="cpu") -> Fleet:
 
 def params(src, device="cpu") -> engine.SimParams:
     """``SimParams`` from the reference's params fields: the link rates,
-    trunk vectors, failure key and fault-trace rows included.  Raises
-    ``NotImplementedError`` where the reference switches on a source the
-    port does not run yet (reservations, dynamic pricing, plan-ahead)."""
-    if np.asarray(_get(src, "resv_res")).shape[0]:
-        raise NotImplementedError("reservations are not ported yet")
-    p = _build(engine.SimParams, src, device)
-    engine._check_params(p)
-    return p
+    trunk vectors, failure and auction keys, fault-trace rows,
+    reservation windows and pricing knobs included."""
+    return _build(engine.SimParams, src, device)
 
 
 def to_numpy(obj):

@@ -11,14 +11,19 @@ by the deadline), ``_release`` (over-committed jobs back to the queue),
 
 Float sums keep the reference's order (``numerics.segment_sum``,
 ``numerics.cumsum``) and its fused multiply-adds (``numerics.fma``), so
-affordability decisions match it bit for bit.  ``plan_ahead`` (the
-cs/0203020 capacity model) is not ported yet.
+affordability decisions match it bit for bit.  ``_measure`` takes the
+reservation windows into the advertised capacity: the reactive broker
+subtracts the PEs held now, and the plan-ahead broker (cs/0203020;
+``HostCounts.plan``, fixed at the run's start) advertises full PEs but
+charges each window's PE-time before the user's deadline and the
+queued bytes on each link (``network.fastest_drain``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import calendar, network, numerics
+from . import reservation as resv_mod
 from .segments import (group_prefix_sum, group_rank, segment_count,
                        segment_min)
 from .types import (CREATED, DONE, FAILED, IN_TRANSIT, INF, OPT_COST,
@@ -30,16 +35,23 @@ def _policy_keys(opt, cost_per_mi, est_rate, r_index, plan_ahead=False):
     """Composite per-resource ordering key for each optimisation mode:
     cost (cheapest G$/MI first, ties by index), time (fastest estimated
     rate first), cost-time (cheapest first, equal costs fastest first),
-    none (index order)."""
-    if plan_ahead:
-        raise NotImplementedError("plan_ahead is not ported yet")
+    none (index order).  ``plan_ahead`` (a host bool) makes cost-time
+    the exact cs/0203020 grouping: a dense rank of the cost (bit-equal
+    costs share a group) plus a within-group term in [0, 0.5]."""
     shape = est_rate.shape
     est_norm = est_rate / torch.clamp_min(
         est_rate.max(dim=-1, keepdim=True).values, 1e-30)
     key_cost = numerics.fma(1e-7, r_index, cost_per_mi).expand(shape)
     key_time = numerics.fma(1e-7, r_index, -est_rate)
-    key_cost_time = numerics.fma(1e-7, r_index,
-                                 numerics.fma(-1e-4, est_norm, cost_per_mi))
+    if plan_ahead:
+        cost = cost_per_mi.expand(shape)
+        grp = (cost[..., None, :] < cost[..., :, None]).sum(dim=-1).to(
+            torch.float32)
+        key_cost_time = numerics.fma(1e-7, r_index,
+                                     grp + (1.0 - est_norm) * 0.5)
+    else:
+        key_cost_time = numerics.fma(
+            1e-7, r_index, numerics.fma(-1e-4, est_norm, cost_per_mi))
     key_none = (r_index * 1.0).expand(shape)
     o = opt[:, None]
     return torch.where(
@@ -99,9 +111,16 @@ def _measure(state, fleet, params, n_users: int):
     blacklisted = (t - state.recovered_at) < params.blacklist_cooldown
     registered = params.registered & state.res_up & ~blacklisted
     eff = calendar.effective_mips(fleet, t)                      # [R]
-    # No reservation windows on this path: the advertised rate is the
-    # full PE count.
-    adv_rate = eff * torch.clamp_min(fleet.num_pe, 0).to(torch.float32)
+    # The reactive broker subtracts the PEs held now from the advertised
+    # rate; plan-ahead advertises them all and charges the windows below.
+    plan = state.host.plan
+    n_windows = params.resv_res.shape[0]
+    adv_pe = fleet.num_pe
+    if n_windows and not plan:
+        adv_pe = adv_pe - resv_mod.active_pes(
+            params.resv_res, params.resv_pes, params.resv_start,
+            params.resv_end, t, R)
+    adv_rate = eff * torch.clamp_min(adv_pe, 0).to(torch.float32)
     cost_per_mi = state.price                                    # [R]
 
     cnt_per_user = torch.bincount(u_idx, minlength=n_users)[:n_users]
@@ -127,12 +146,68 @@ def _measure(state, fleet, params, n_users: int):
     est_jobs = torch.where(registered[None, :], est_jobs, 0.0)   # [U,R]
 
     time_left = torch.clamp_min(params.deadline - t, 0.0)        # [U]
-    cap_jobs = torch.floor(est_jobs * time_left[:, None]).to(torch.int32)
+    if plan:
+        cap_jobs = _plan_capacity(state, params, eff, avg_mi, est_jobs,
+                                  time_left, R)
+    else:
+        cap_jobs = torch.floor(est_jobs * time_left[:, None]).to(
+            torch.int32)
 
     active = (t < params.deadline) & affordable(state, params, n_users)
     return dict(registered=registered, cost_per_mi=cost_per_mi,
                 est_jobs=est_jobs, cap_jobs=cap_jobs, avg_mi=avg_mi,
                 inflight=inflight, ur_res_key=ur_res_key, active=active)
+
+
+def _window_pe_time(pe_time, resv_res, R):
+    """Each resource's windowed PE-time, f32[U, R]: ``pe_time`` [U, K]
+    summed over the windows booked on the resource.  The reference
+    contracts it against a one-hot [R, K] (an XLA:CPU dot); for the
+    shapes of its cells (U >= 2, R = 11) the dot adds the windows in
+    four lanes, window k into lane k mod 4, sums the lanes as (0 + 1) +
+    (2 + 3), then adds the last K mod 4 windows, (k0 + k1) + k2."""
+    k = pe_time.shape[1]
+    on_r = resv_res.to(torch.int64)[None, :] == torch.arange(
+        R, device=resv_res.device)[:, None]                      # [R,K]
+    v = torch.where(on_r[None], pe_time[:, None, :], 0.0)        # [U,R,K]
+    n4 = k // 4 * 4
+    total = torch.zeros(v.shape[:2], dtype=torch.float32, device=v.device)
+    if n4:
+        lanes = v[..., :4]
+        for c in range(4, n4, 4):
+            lanes = lanes + v[..., c:c + 4]
+        total = (lanes[..., 0] + lanes[..., 1]) + \
+            (lanes[..., 2] + lanes[..., 3])
+    if k > n4:
+        tail = v[..., n4]
+        for c in range(n4 + 1, k):
+            tail = tail + v[..., c]
+        total = tail if not n4 else total + tail
+    return total
+
+
+def _plan_capacity(state, params, eff, avg_mi, est_jobs, time_left, R):
+    """Plan-ahead capacity by the deadline (cs/0203020), i32[U, R]: the
+    jobs the estimated rate completes after the link's queued bytes
+    drain, less the jobs-equivalent of the PE-time each reservation
+    window blocks over [t, deadline_u] at the current calendar rate."""
+    t = state.t
+    ov = torch.clamp_min(
+        torch.minimum(params.resv_end[None, :], params.deadline[:, None]) -
+        torch.maximum(params.resv_start[None, :], t), 0.0)      # [U,K]
+    pe_time = params.resv_pes.to(torch.float32)[None, :] * ov
+    blocked_jobs = _window_pe_time(pe_time, params.resv_res, R) * \
+        eff[None, :] / torch.clamp_min(avg_mi[:, None], 1e-30)
+    if state.link_rem.shape[1] > 0:
+        link_delay = network.fastest_drain(
+            numerics.ordered_sum_rows(state.link_rem[:R]),
+            params.link_baud, params.bg_flows)                   # [R]
+    else:
+        link_delay = torch.zeros((R,), dtype=torch.float32,
+                                 device=t.device)
+    window = torch.clamp_min(time_left[:, None] - link_delay[None, :], 0.0)
+    return torch.floor(torch.clamp_min(
+        numerics.fma(est_jobs, window, -blocked_jobs), 0.0)).to(torch.int32)
 
 
 def _release(state, ctx, params, n_users: int, R: int):
@@ -182,7 +257,7 @@ def _assign(state, ctx, assigned, n_committed, params, n_users: int,
 
     r_f = torch.arange(R, dtype=torch.float32, device=dev)[None, :]
     keys = _policy_keys(params.opt, cost_per_mi[None, :], ctx["est_jobs"],
-                        r_f)
+                        r_f, plan_ahead=state.host.plan)
     keys = torch.where(registered[None, :], keys, INF)
     order = torch.sort(keys, dim=-1, stable=True).indices        # [U,R]
     inv_order = torch.empty_like(order).scatter_(

@@ -1,15 +1,24 @@
-"""Deadline/budget determination (paper 4.2.3): the static half of
-``repro.core.economy``.
+"""The economy layer (port of ``repro.core.economy``): deadline/budget
+determination (paper 4.2.3) and the dynamic pricing models of the Buyya
+thesis (cs/0204048, ch. 4).
 
     Deadline = T_MIN + D_FACTOR * (T_MAX - T_MIN)        (Eq 1)
     Budget   = C_MIN + B_FACTOR * (C_MAX - C_MIN)        (Eq 2)
 
-The dynamic pricing models (``commodity_reprice``, ``auction_round``)
-are not ported yet; the engine refuses a non-static pricing model.
+``fleet.cost_per_mi()`` is the base (advertised) price; the engine
+carries the posted per-MI price in ``SimState.price``, and its MARKET
+and AUCTION sources move it with :func:`commodity_reprice` (posted price
+driven by excess demand, clamped to ``[floor, cap] * base``) and
+:func:`auction_round` (a sealed-bid round drawn from the run's auction
+key).  The arithmetic is the reference's as XLA:CPU compiles it in the
+engine's loop (the contractions are held against jitted JAX in the
+tests).
 """
 from __future__ import annotations
 
 import torch
+
+from . import numerics, rand
 
 PRICE_STATIC = 0
 PRICE_COMMODITY = 1
@@ -27,6 +36,24 @@ def as_pricing_model(model) -> int:
     if isinstance(model, str):
         return _PRICING_NAMES[model]
     return int(model)
+
+
+def commodity_reprice(price, base, demand, gain, floor, cap):
+    """One commodity-market posted-price adjustment: ``demand`` is
+    resident jobs per PE (1.0 = exactly subscribed); excess demand
+    raises the price by ``gain`` a unit, idle capacity lowers it, and
+    the result is clamped to ``[floor * base, cap * base]``."""
+    step = numerics.fma(gain, demand - 1.0, 1.0)
+    return torch.minimum(torch.maximum(price * step, base * floor),
+                         base * cap)
+
+
+def auction_round(key, base, floor, cap):
+    """One sealed-bid round: per-resource asking-price factors drawn
+    uniformly from ``[floor, cap)``; the posted price becomes ``base *
+    bid``.  Deterministic given ``key``."""
+    bids = rand.uniform(key, base.shape, minval=floor, maxval=cap)
+    return base * bids
 
 
 def _f32(x, like):

@@ -40,13 +40,18 @@ sources draw MTBF/MTTR holding times from the run's threefry key
 time-sorted fault trace whose trunk targets flip a whole failure domain,
 and the residents of a downed resource (and arrivals at one) move to
 FAILED with their cost refunded and a retry backoff
-(``_fail_gridlets``); the broker resubmits them.  A run without a
-failure stream or a trace runs none of this: the gates are fixed at its
-start (``HostCounts.strikes`` / ``trace``), as the reference's
-``fault_time is None`` gate is static.  RESERVATION, MARKET and AUCTION
-are registered with +inf candidates and no apply body, so trace codes
-and apply order match the reference; ``run``/``run_direct`` refuse
-every setting that would switch one on.
+(``_fail_gridlets``); the broker resubmits them.  The economy runs as
+in the reference: RESERVATION wakes the loop at every window boundary
+(``params.resv_*``, half-open windows whose PEs leave the scan's shares
+and the space-shared admission) and re-admits queued work when a window
+closes; MARKET reprices by excess demand and AUCTION draws a sealed-bid
+round from the run's auction key, each every period, moving the posted
+price the broker trades at.  A run without failure streams, trace,
+windows or dynamic pricing runs none of this: the gates are fixed at
+its start (``HostCounts.strikes`` / ``trace`` / ``market`` /
+``auction``, and the window table's length), as the reference's
+``fault_time is None`` gate is static, so such a run is today's program
+op for op.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ import torch
 from . import broker as broker_mod
 from . import calendar, des, network, numerics, rand
 from . import economy as econ_mod
+from . import reservation as resv_mod
 from ..kernels import event_scan as _event_kernels
 from ..kernels.event_scan import BIG as _BIG
 from .segments import group_rank, segment_count
@@ -71,8 +77,7 @@ DEFAULT_BATCH = 8    # superstep batching factor k (see step_batched)
 
 @dataclasses.dataclass(frozen=True)
 class SimParams:
-    """Per-experiment knobs (the reference's field names; the knobs of
-    sources this slice does not run must keep their off values)."""
+    """Per-experiment knobs (the reference's field names)."""
     deadline: torch.Tensor        # f32[U]
     budget: torch.Tensor          # f32[U]
     opt: torch.Tensor             # i32[U] broker optimisation strategy
@@ -85,10 +90,20 @@ class SimParams:
                                   #     (0 = no failure stream)
     mttr: torch.Tensor            # f32[R] mean time to recovery
     fail_key: torch.Tensor        # i64[2] key seeding the MTBF/MTTR streams
+    resv_res: torch.Tensor        # i32[K] reservation -> resource
+    resv_pes: torch.Tensor        # i32[K] PEs held
+    resv_start: torch.Tensor      # f32[K] window start (inclusive)
+    resv_end: torch.Tensor        # f32[K] window end (exclusive)
     link_baud: torch.Tensor       # f32[R] link capacity (net mode only)
     bg_flows: torch.Tensor        # f32[R] background flows (net mode)
-    pricing_model: torch.Tensor   # i32[] economy.PRICE_* (static only)
-    plan_ahead: torch.Tensor      # bool[] plan-ahead DBC (off only)
+    pricing_model: torch.Tensor   # i32[] economy.PRICE_* (0 = static)
+    market_period: torch.Tensor   # f32[] commodity repricing period
+    market_gain: torch.Tensor     # f32[] price move per unit excess demand
+    price_floor: torch.Tensor     # f32[] posted-price clamp, x base price
+    price_cap: torch.Tensor       # f32[] posted-price clamp, x base price
+    auction_period: torch.Tensor  # f32[] sealed-bid round period
+    auction_key: torch.Tensor     # i64[2] key seeding the bid draws
+    plan_ahead: torch.Tensor      # bool[] plan-ahead DBC dispatch
     retry_limit: torch.Tensor     # i32[] resubmission budget
     backoff_base: torch.Tensor    # f32[] exponential backoff unit
     blacklist_cooldown: torch.Tensor  # f32[] broker cooldown
@@ -109,7 +124,9 @@ def default_params(deadline, budget, opt, n_users: int,
                    n_resources: int = 1, registered=None, mtbf=None,
                    mttr=None, reservations=None, fail_key=None,
                    link_baud=None, bg_flows=None,
-                   pricing_model=econ_mod.PRICE_STATIC, plan_ahead=False,
+                   pricing_model=econ_mod.PRICE_STATIC, market_period=None,
+                   market_gain=None, price_floor=None, price_cap=None,
+                   auction_period=None, auction_key=None, plan_ahead=False,
                    trunk_of=None, trunk_baud=None, trunk_bg=None,
                    fault_trace=None, retry_limit=None, backoff_base=None,
                    blacklist_cooldown=None, device="cpu") -> SimParams:
@@ -122,9 +139,15 @@ def default_params(deadline, budget, opt, n_users: int,
     rows or a [K, 3] array: target 0..R-1 names a resource, R + id a
     trunk (its whole failure domain flips at once); the rows are sorted
     by time here (stably).  ``retry_limit``/``backoff_base``/
-    ``blacklist_cooldown`` are the fault-tolerant broker's knobs.  The
-    reservation, dynamic-pricing and plan-ahead settings are not ported
-    yet and raise ``NotImplementedError`` when switched on."""
+    ``blacklist_cooldown`` are the fault-tolerant broker's knobs.
+    ``reservations`` is a ``ReservationBook``, an iterable of (resource,
+    pes, start, end) tuples, or the 4-tensor table itself.
+    ``pricing_model`` (``economy.PRICE_*`` or its name) picks the dynamic
+    pricing source; its knobs default to the reference's (a round every
+    10 time units, +-25% a unit of excess demand, posted prices clamped
+    to [0.5, 2.0] x base, ``auction_key`` ``rand.PRNGKey(0)``).
+    ``plan_ahead`` prices the windows and link queues into the broker's
+    capacity and groups equal costs exactly (``broker._measure``)."""
     def t(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
@@ -134,12 +157,18 @@ def default_params(deadline, budget, opt, n_users: int,
     if registered is None:
         registered = torch.ones((n_resources,), dtype=torch.bool,
                                 device=device)
-    if reservations is not None and len(list(reservations)) > 0:
-        raise NotImplementedError("reservations are not ported yet")
-    if econ_mod.as_pricing_model(pricing_model) != econ_mod.PRICE_STATIC:
-        raise NotImplementedError("dynamic pricing is not ported yet")
-    if plan_ahead:
-        raise NotImplementedError("plan_ahead is not ported yet")
+    if reservations is None:
+        resv = resv_mod.empty_tables(device)
+    elif hasattr(reservations, "as_tables"):
+        resv = reservations.as_tables(device)
+    elif (isinstance(reservations, tuple) and len(reservations) == 4
+          and all(hasattr(x, "dtype") for x in reservations)):
+        resv = tuple(torch.as_tensor(x, dtype=d, device=device)
+                     for x, d in zip(reservations, (torch.int32, torch.int32,
+                                                    torch.float32,
+                                                    torch.float32)))
+    else:
+        resv = resv_mod.as_tables(reservations, device)
     ft = ftgt = fup = None
     if fault_trace is not None:
         tr = torch.as_tensor(
@@ -164,11 +193,23 @@ def default_params(deadline, budget, opt, n_users: int,
         fail_key=(rand.PRNGKey(0, device) if fail_key is None
                   else torch.as_tensor(fail_key, dtype=torch.int64,
                                        device=device)),
+        resv_res=resv[0], resv_pes=resv[1],
+        resv_start=resv[2], resv_end=resv[3],
         link_baud=t(INF if link_baud is None else link_baud).broadcast_to(
             (n_resources,)).clone(),
         bg_flows=r(bg_flows),
-        pricing_model=t(econ_mod.PRICE_STATIC, torch.int32),
-        plan_ahead=t(False, torch.bool),
+        pricing_model=t(econ_mod.as_pricing_model(pricing_model),
+                        torch.int32),
+        market_period=t(10.0 if market_period is None else market_period),
+        market_gain=t(0.25 if market_gain is None else market_gain),
+        price_floor=t(0.5 if price_floor is None else price_floor),
+        price_cap=t(2.0 if price_cap is None else price_cap),
+        auction_period=t(10.0 if auction_period is None
+                         else auction_period),
+        auction_key=(rand.PRNGKey(0, device) if auction_key is None
+                     else torch.as_tensor(auction_key, dtype=torch.int64,
+                                          device=device)),
+        plan_ahead=t(bool(plan_ahead), torch.bool),
         retry_limit=t(2 ** 30 if retry_limit is None else retry_limit,
                       torch.int32),
         backoff_base=t(0.0 if backoff_base is None else backoff_base),
@@ -190,11 +231,15 @@ class HostCounts:
     padded per-row inputs, ``link_rows`` (built on its first call).
 
     The run's static gates, fixed at its start (the reference's static
-    ``fault_time is None`` gate, widened to the failure streams):
-    ``strikes`` (some ``mtbf > 0``: FAILURE and RECOVERY apply),
-    ``trace`` (a fault trace is replayed).  ``maybe_down`` is False
-    while the host knows every resource is up, so no arrival can fail:
-    a strike or a trace row sets it, and a recovery reads it back."""
+    ``fault_time is None`` gate, widened to the failure streams and the
+    economy): ``strikes`` (some ``mtbf > 0``: FAILURE and RECOVERY
+    apply), ``trace`` (a fault trace is replayed), ``market`` /
+    ``auction`` (that pricing model with a positive period: the source
+    fires), ``plan`` (the broker plans ahead).  Reservation windows gate
+    on the table's length (``params.resv_res.shape[0]``), which the host
+    knows.  ``maybe_down`` is False while the host knows every resource
+    is up, so no arrival can fail: a strike or a trace row sets it, and
+    a recovery reads it back."""
     n_reseeds: torch.Tensor
     n_steps: int = 0
     n_spec: int = 0
@@ -205,6 +250,9 @@ class HostCounts:
     link_rows: _event_kernels.LinkRows | None = None
     strikes: bool = False
     trace: bool = False
+    market: bool = False
+    auction: bool = False
+    plan: bool = False
     maybe_down: bool = False
 
     def read(self, pred) -> bool:
@@ -244,6 +292,7 @@ class SimState:
     price: torch.Tensor           # f32[R] posted G$/MI trading metric
     next_market: torch.Tensor     # f32 next repricing instant (inf)
     next_auction: torch.Tensor    # f32 next auction round (inf)
+    auction_key: torch.Tensor     # i64[2] key of the bid draws
     n_events: torch.Tensor        # i32 applied events
     n_trace: torch.Tensor         # i32 trace entries written
     n_failed: torch.Tensor        # i32 gridlets hit by a failure
@@ -328,11 +377,19 @@ def _rates(state, fleet, n_resources):
     return torch.where(running, rate, 0.0)
 
 
+def _resv_on(params) -> bool:
+    """The run books reservation windows (K > 0; the host knows K)."""
+    return params.resv_res.shape[0] > 0
+
+
 def _reserved_pes(params, t, n_resources):
-    """PEs blocked by reservation windows at ``t``: none on this slice
-    (the reservation source is not ported yet)."""
-    return torch.zeros((n_resources,), dtype=torch.int32,
-                       device=params.deadline.device)
+    """PEs blocked by reservation windows at ``t``: i32[R]."""
+    if not _resv_on(params):
+        return torch.zeros((n_resources,), dtype=torch.int32,
+                           device=params.deadline.device)
+    return resv_mod.active_pes(params.resv_res, params.resv_pes,
+                               params.resv_start, params.resv_end, t,
+                               n_resources)
 
 
 def _row_inputs(state, fleet, params, n_resources, r_pad):
@@ -801,6 +858,51 @@ def _apply_trace(state, fleet, params, due, down_r, up_r, now, n_users,
         recovered_at=torch.where(eff_up, now, state.recovered_at))
 
 
+def _admit_after_reservation(state, fleet, params, now, n_resources,
+                             qrank, gate):
+    """A window boundary changed the blocked-PE counts: re-admit queued
+    work onto whatever space-shared capacity is free now.  ``gate`` (a
+    device bool) zeroes the free-PE budget when False, which makes the
+    admission a no-op.  Returns (state, admitted mask)."""
+    g = state.g
+    res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    busy = segment_count(g.status == RUNNING, res, n_resources)
+    avail = fleet.num_pe - _reserved_pes(params, now, n_resources) - busy
+    free_pe = torch.where((fleet.policy == SPACE_SHARED) & state.res_up,
+                          torch.clamp_min(avail, 0), 0)
+    free_pe = torch.where(gate, free_pe, 0)
+    return _admit_queued(state, fleet, free_pe, now, n_resources, qrank)
+
+
+def _apply_market(state, fleet, params, now, n_resources):
+    """One commodity-market round: demand is the resident (RUNNING or
+    QUEUED) jobs a PE, the posted price moves by it, and the next round
+    is a period away."""
+    g = state.g
+    res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+    resident = (g.status == RUNNING) | (g.status == QUEUED)
+    # integer-valued f32 counts: exact in any summation order
+    n_res = segment_count(resident, res, n_resources).to(torch.float32)
+    demand = n_res / torch.clamp_min(fleet.num_pe.to(torch.float32), 1.0)
+    base = fleet.cost_per_mi().to(torch.float32)
+    price = econ_mod.commodity_reprice(state.price, base, demand,
+                                       params.market_gain,
+                                       params.price_floor, params.price_cap)
+    return replace(state, price=price,
+                   next_market=now + params.market_period)
+
+
+def _apply_auction(state, fleet, params, now):
+    """One sealed-bid round: one ``split`` of the run's auction key, the
+    bids drawn from its second half, the next round a period away."""
+    key, kbid = rand.split(state.auction_key)
+    base = fleet.cost_per_mi().to(torch.float32)
+    price = econ_mod.auction_round(kbid, base, params.price_floor,
+                                   params.price_cap)
+    return replace(state, price=price, auction_key=key,
+                   next_auction=now + params.auction_period)
+
+
 # ----------------------------------------------------------------------
 # Event sources (des.FnSource protocol)
 # ----------------------------------------------------------------------
@@ -821,11 +923,13 @@ def _make_sources(fleet, params, n_users, ctx):
     ``ctx`` is the per-superstep scratch dict the sources share (scan
     outputs, event masks, the remaining free-PE budget, the due flags
     read for this superstep).  FAILURE and RECOVERY apply only in a run
-    with a failure stream, TRACE only with a fault trace (the run's
-    static gates, ``HostCounts``); reservations and pricing are not on
-    this slice: they expose +inf candidates of the reference's sizes and
-    apply as the identity."""
+    with a failure stream, TRACE only with a fault trace, RESERVATION
+    only with windows, MARKET and AUCTION only under their pricing model
+    (the run's static gates, ``HostCounts``); gated off, each exposes
+    the reference's candidates of its off state (none, or one +inf) and
+    applies as the identity."""
     n_resources = fleet.r
+    resv_on = _resv_on(params)
 
     # -- COMPLETION: the kernel scan IS the candidate computation -------
     def completion_candidates(state):
@@ -947,6 +1051,54 @@ def _make_sources(fleet, params, n_users, ctx):
                              state.row_gridlet.shape[0])
         state.host.maybe_down = state.host.read((~state.res_up).any())
         return state
+
+    # -- RESERVATION: windows open and close at params.resv_* ----------
+    def reservation_candidates(state):
+        if not resv_on:
+            return state.t.new_zeros((0,))
+        return resv_mod.boundary_candidates(params.resv_start,
+                                            params.resv_end, state.t)
+
+    def reservation_apply(state, now):
+        # ctx["due"] holds "fired, and work was QUEUED when the superstep
+        # began"; QUEUED work appears only with ARRIVAL, after this
+        # source, so without it the reference's predicate is False and
+        # the apply the identity.  With it, the predicate is exact on
+        # the device: earlier applies may have emptied the queue.
+        if not resv_on or not ctx["due"][des.K_RESERVATION]:
+            return state
+        res = torch.clamp(state.g.resource.to(torch.int64), 0,
+                          n_resources - 1)
+        pred = (state.g.status == QUEUED).any()
+        qr0, qok = ctx["qcarry"]
+        qr = torch.where(qok, qr0, _queue_rank(state, fleet, n_resources))
+        state, admitq = _admit_after_reservation(state, fleet, params, now,
+                                                 n_resources, qr, pred)
+        n_admit_r = segment_count(admitq, res, n_resources)
+        ctx["qcarry"] = (qr - n_admit_r[res], qok | pred)
+        ctx["newly"] = ctx["newly"] | admitq
+        ctx["free_pe"] = ctx["free_pe"] - n_admit_r
+        return state
+
+    # -- MARKET / AUCTION: dynamic pricing rounds (economy layer) -------
+    # Both write only the posted price, their next instant and (AUCTION)
+    # the bid key; the price never enters the Fig 8 arithmetic, so
+    # neither invalidates the slab carry.  Both keep the default horizon
+    # (their own instants cut the slab): they fire only in committing
+    # supersteps.
+    def market_apply(state, now):
+        nxt = state.next_market
+        if not state.host.market or not _due(
+                state, ctx, des.K_MARKET, torch.isfinite(nxt) & (nxt <= now)):
+            return state
+        return _apply_market(state, fleet, params, now, n_resources)
+
+    def auction_apply(state, now):
+        nxt = state.next_auction
+        if not state.host.auction or not _due(
+                state, ctx, des.K_AUCTION, torch.isfinite(nxt) & (nxt <= now)):
+            return state
+        return _apply_auction(state, fleet, params, now)
 
     # -- NETWORK: fair-share links (the [R_pad, T] transfer table) ------
     def network_candidates(state):
@@ -1092,11 +1244,11 @@ def _make_sources(fleet, params, n_users, ctx):
         # trace rows fire only in committing supersteps
         des.FnSource(des.K_TRACE, "trace", trace_candidates, trace_apply),
         des.FnSource(des.K_RESERVATION, "reservation",
-                     lambda s: s.t.new_zeros((0,)), _identity),
+                     reservation_candidates, reservation_apply),
         des.FnSource(des.K_MARKET, "market",
-                     lambda s: s.next_market.reshape(1), _identity),
+                     lambda s: s.next_market.reshape(1), market_apply),
         des.FnSource(des.K_AUCTION, "auction",
-                     lambda s: s.next_auction.reshape(1), _identity),
+                     lambda s: s.next_auction.reshape(1), auction_apply),
         des.FnSource(des.K_NETWORK, "network", network_candidates,
                      network_apply,
                      horizon_candidates_fn=network_horizon),
@@ -1228,8 +1380,9 @@ def _slab_after(state, ctx, scan, fired_interfering: bool, fleet,
     """The slab carry after a superstep: survivors' ranks shift down by
     the per-row completed count; the carry stays valid unless a
     newly-RUNNING job landed on a time-shared row or an interfering
-    source (FAILURE, RECOVERY, TRACE: they rewrite slots and row masks)
-    fired, which the host knows from the flags it read."""
+    source (FAILURE, RECOVERY, TRACE: they rewrite slots and row masks;
+    RESERVATION: it moves the rows' blocked PEs) fired, which the host
+    knows from the flags it read."""
     n_comp_r = _pad(ctx["n_comp_r"], r_pad - n_resources, 0)
     rank = scan[4] - n_comp_r[:, None].to(torch.float32)
     res = torch.clamp(state.g.resource.to(torch.int64), 0, n_resources - 1)
@@ -1267,18 +1420,28 @@ def _step_commit(state, fleet, params, n_users, slab):
     pos_of = {s.kind: i for i, s in enumerate(sources)}
     ctx["fired_b"] = fired[pos_of[des.K_BROKER]]
     interfering = False
-    if host.strikes or host.trace:
-        # one read of every source's flag stands for the FAILURE, TRACE
-        # and BROKER reads; RECOVERY's holds unless a failure fired (a
-        # repair may round to zero time and recover in this superstep)
-        flags = host.read_flags(fired)
+    resv_on = _resv_on(params)
+    if host.strikes or host.trace or resv_on or host.market or \
+            host.auction:
+        # one read of every source's flag stands for the FAILURE, TRACE,
+        # MARKET, AUCTION and BROKER reads; RECOVERY's holds unless a
+        # failure fired (a repair may round to zero time and recover in
+        # this superstep).  With windows the read also carries whether
+        # work is QUEUED now, before any apply (RESERVATION's predicate)
+        vec = fired if not resv_on else torch.cat(
+            [fired, (state.g.status == QUEUED).any().reshape(1)])
+        flags = host.read_flags(vec)
         due = {k: flags[pos_of[k]] for k in (des.K_FAILURE, des.K_TRACE,
+                                             des.K_MARKET, des.K_AUCTION,
                                              des.K_BROKER)}
         if not due[des.K_FAILURE]:
             due[des.K_RECOVERY] = flags[pos_of[des.K_RECOVERY]]
+        due[des.K_RESERVATION] = resv_on and \
+            flags[pos_of[des.K_RESERVATION]] and flags[-1]
         ctx["due"] = due
         interfering = any(flags[pos_of[k]] for k in (
-            des.K_FAILURE, des.K_RECOVERY, des.K_TRACE))
+            des.K_FAILURE, des.K_RECOVERY, des.K_TRACE,
+            des.K_RESERVATION))
 
     # priority order, except BROKER before ARRIVAL
     order = list(range(len(sources)))
@@ -1441,10 +1604,11 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
     (the J axis of the job-slot table; default N); ``net_cap`` sizes
     the transfer-slot table (T per link, capped at N; 0 = analytic
     links).  ``params`` seeds the failure stream: ``key, k1 =
-    split(fail_key)``, the first failure ``exponential(k1, mtbf)``.  The
-    run's static gates are fixed here (``HostCounts``): with no ``mtbf >
-    0`` nothing is drawn, ``next_fail`` is the draw's +inf and the key is
-    never used."""
+    split(fail_key)``, the first failure ``exponential(k1, mtbf)``; and
+    the pricing rounds: the first one period in under its model (else
+    +inf), the bids from ``auction_key``.  The run's static gates are
+    fixed here (``HostCounts``): with no ``mtbf > 0`` nothing is drawn,
+    ``next_fail`` is the draw's +inf and the key is never used."""
     n = gridlets.n
     dev = gridlets.length_mi.device
     j_cap = n if max_jobs is None else min(max_jobs, n)
@@ -1465,6 +1629,13 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
     if strikes:
         key, k1 = rand.split(key)
         next_fail = rand.exponential(k1, params.mtbf)
+    model = econ_mod.PRICE_STATIC if params is None else \
+        int(params.pricing_model)
+    market = model == econ_mod.PRICE_COMMODITY and \
+        float(params.market_period) > 0
+    auction = model == econ_mod.PRICE_AUCTION and \
+        float(params.auction_period) > 0
+    plan = params is not None and bool(params.plan_ahead)
     return SimState(
         t=full((), 0.0),
         g=gridlets,
@@ -1488,15 +1659,20 @@ def init_state(gridlets, fleet, n_users: int, first_sched: float = 0.0,
         rng_key=key,
         price=fleet.cost_per_mi().to(torch.float32).broadcast_to(
             (r,)).clone(),
-        next_market=full((), INF),
-        next_auction=full((), INF),
+        next_market=(params.market_period.to(torch.float32).clone()
+                     if market else full((), INF)),
+        next_auction=(params.auction_period.to(torch.float32).clone()
+                      if auction else full((), INF)),
+        auction_key=(rand.PRNGKey(0, dev) if params is None
+                     else params.auction_key),
         n_events=zero_i, n_trace=zero_i, n_failed=zero_i,
         n_resubmits=zero_i, overflow=zero_i,
         trace_t=full((TRACE_LEN,), INF),
         trace_kind=full((TRACE_LEN,), -1, torch.int32),
         trace_who=full((TRACE_LEN,), -1, torch.int32),
         host=HostCounts(n_reseeds=zero_i.clone(), strikes=strikes,
-                        trace=trace),
+                        trace=trace, market=market, auction=auction,
+                        plan=plan),
         width=width,
     )
 
@@ -1523,16 +1699,8 @@ def _finalize(state) -> SimResult:
                      n_scans=i32(host.n_scans), host_syncs=host.syncs)
 
 
-def _check_params(params: SimParams):
-    if int(params.pricing_model) != econ_mod.PRICE_STATIC:
-        raise NotImplementedError("dynamic pricing is not ported yet")
-    if bool(params.plan_ahead):
-        raise NotImplementedError("plan_ahead is not ported yet")
-
-
 def _run(gridlets, fleet, params, n_users, max_events, max_jobs, batch,
          net_cap=0):
-    _check_params(params)
     state = init_state(gridlets, fleet, n_users, max_jobs=max_jobs,
                        params=params, net_cap=net_cap)
     _, finished = _user_flags(state, params, fleet, n_users)
@@ -1571,7 +1739,8 @@ def run_direct(gridlets, fleet, resource_idx, dispatch_time,
     arrives after its input transfer at the resource's baud rate -- or,
     with ``net_cap > 0``, after its fair share of the contended link
     (``baud_rate``/``bg_flows``, default ``fleet.baud_rate`` and 0) has
-    moved the payload."""
+    moved the payload.  ``reservations`` books windows on the fleet (see
+    :func:`default_params`)."""
     dev = resolve_device(device)
     gridlets = to_device(gridlets, dev)
     fleet = to_device(fleet, dev)

@@ -186,18 +186,28 @@ def cumsum(x):
     return cumsum_rows(x.reshape(1, -1))[0]
 
 
-def ordered_sum(x):
-    """XLA:CPU's f32 ``jnp.sum`` of a 1-D tensor, bit for bit: while more
-    than 32 values remain, pad with zeros to a multiple of 32 (half the
-    padding in front, the odd one at the back), sum each window of 32
-    left to right; the last <= 32 values are summed left to right."""
-    while x.shape[0] > _WINDOW:
-        n = x.shape[0]
+def ordered_sum_rows(x):
+    """XLA:CPU's f32 ``jnp.sum(x, axis=1)`` of a 2-D tensor, bit for bit:
+    while a row holds more than 32 values, pad it with zeros to a
+    multiple of 32 (half the padding in front, the odd one at the back)
+    and sum each window of 32 left to right; the last <= 32 values are
+    summed left to right."""
+    r = x.shape[0]
+    while x.shape[1] > _WINDOW:
+        n = x.shape[1]
         pad = -(-n // _WINDOW) * _WINDOW - n
-        x = torch.cat([x.new_zeros(pad // 2), x, x.new_zeros(pad - pad // 2)])
-        x = _seq_scan_cols(x.reshape(-1, _WINDOW))[:, -1].contiguous()
-    return _seq_scan_cols(x.reshape(1, -1))[0, -1] if x.shape[0] else \
-        x.new_zeros(())
+        x = torch.cat([x.new_zeros((r, pad // 2)), x,
+                       x.new_zeros((r, pad - pad // 2))], dim=1)
+        x = _seq_scan_cols(x.reshape(-1, _WINDOW))[:, -1].reshape(r, -1)
+    if not x.shape[1]:
+        return x.new_zeros((r,))
+    return _seq_scan_cols(x)[:, -1].contiguous()
+
+
+def ordered_sum(x):
+    """XLA:CPU's f32 ``jnp.sum`` of a 1-D tensor (:func:`ordered_sum_rows`
+    of one row)."""
+    return ordered_sum_rows(x.reshape(1, -1))[0]
 
 
 def segment_sum(values, seg, n_seg: int, width: int, init=None):

@@ -105,12 +105,23 @@ def random_bits(key, shape, partitionable: bool = True):
     return bits.reshape(shape)
 
 
-def uniform(key, shape, partitionable: bool = True):
+def uniform(key, shape, partitionable: bool = True, minval=None,
+            maxval=None):
     """``jax.random.uniform(key, shape, float32)`` in [0, 1): the top 23
-    random bits as the mantissa of a float in [1, 2), less one."""
+    random bits as the mantissa of a float in [1, 2), less one.  With
+    ``minval``/``maxval`` (f32 scalars or tensors broadcasting to
+    ``shape``) it is ``max(minval, u * (maxval - minval) + minval)``,
+    the multiply-add fused into one rounding as XLA:CPU compiles it."""
     bits = random_bits(key, shape, partitionable)
     one = (bits >> 9) | 0x3F800000
-    return one.to(torch.int32).view(torch.float32) - 1.0
+    u = one.to(torch.int32).view(torch.float32) - 1.0
+    if minval is None and maxval is None:
+        return u
+    lo = torch.as_tensor(0.0 if minval is None else minval,
+                         dtype=torch.float32, device=u.device)
+    hi = torch.as_tensor(1.0 if maxval is None else maxval,
+                         dtype=torch.float32, device=u.device)
+    return torch.maximum(lo, numerics.fma(u, hi - lo, lo))
 
 
 def real(key, d, f_low, f_more, partitionable: bool = True):

@@ -4,13 +4,14 @@ of ``repro.core.simulation``).
 ``run_experiment`` = create resources + users + brokers, start the
 clock, collect statistics -- one call, on the card unless the caller
 passes ``device="cpu"``.  ``Scenario`` keeps the reference's knobs and
-defaults; the ones that would switch on a source the port does not run
-yet (reservations, dynamic pricing, plan-ahead) raise
-``NotImplementedError``, as do the sweep drivers.  The failure streams
-(``mtbf``/``mttr``, seeded from ``seed``), the fault trace and the
-fault-tolerant broker's knobs run as in the reference.  The network
-knobs (``baud_rate``, ``bg_flows``, ``trunk_*``) take effect with
-``net_cap != 0``.
+defaults, and every one of them runs as in the reference: the failure
+streams (``mtbf``/``mttr``, seeded from ``seed``), the fault trace and
+the fault-tolerant broker's knobs, reservation and maintenance windows
+(``reservations``), commodity and auction pricing (the auction seeded
+from ``auction_seed``, else ``seed``) and the plan-ahead broker.  The
+network knobs (``baud_rate``, ``bg_flows``, ``trunk_*``) take effect
+with ``net_cap != 0``.  The sweep drivers are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -150,6 +151,11 @@ def _scenario_params(fleet, deadline, budget, opt, n_users,
                    else s.baud_rate),
         bg_flows=s.bg_flows,
         pricing_model=economy.as_pricing_model(s.pricing_model),
+        market_period=s.market_period,
+        market_gain=s.market_gain,
+        auction_period=s.auction_period,
+        auction_key=rand.PRNGKey(
+            s.seed if s.auction_seed is None else s.auction_seed, device),
         plan_ahead=bool(s.plan_ahead) if s.plan_ahead is not None
         else False,
         trunk_of=s.trunk_of, trunk_baud=s.trunk_baud,

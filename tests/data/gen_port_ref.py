@@ -1,14 +1,15 @@
 """Regenerate the reference results the PyTorch port is held against:
 tests/data/port_ref_main.json (the main path),
 tests/data/port_ref_net.json (the contended network),
-tests/data/port_ref_fail.json (failures, fault traces, retries) and
-tests/data/port_ref_rand.json (the PRNG and XLA:CPU's transcendentals).
+tests/data/port_ref_fail.json (failures, fault traces, retries),
+tests/data/port_ref_rand.json (the PRNG and XLA:CPU's transcendentals)
+and tests/data/port_ref_econ.json (reservations, pricing, plan-ahead).
 
 Run from the repo root with the JAX reference on the CPU:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net|fail|rand]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net|fail|rand|econ]
 
-(no argument writes all four).  port_ref_main.json holds four cells of
+(no argument writes all five).  port_ref_main.json holds four cells of
 ``benchmarks/engine_bench.py``: 1u_200j, 20u_100j and 200u_10j on the
 WWG fleet, 4u_512j on the deep 2 x 80-PE fleet; gridlets from
 ``task_farm(PRNGKey(3))``, cost optimisation, the engine's default
@@ -30,6 +31,18 @@ must fail at least one gridlet.  port_ref_rand.json holds PRNGKey /
 split chains and 4096-word bits, uniform and exponential draws for a
 few seeds in both threefry layouts, XLA:CPU's exp2 on 0..30 and the
 SHA-256 of its ``-log1p(-u)`` over all 2**23 f32 uniforms.
+port_ref_econ.json holds the grid economy on analytic links: at 20 users
+x 100 jobs R7 with 8 of its 16 PEs booked over [0, 1000) and maintenance
+on R8 over [200, 400) and R4 over [600, 700) (``_resv``), the same
+windows under cost-time optimisation with the plan-ahead broker
+(``_plan``), commodity pricing (period 60, gain 0.25, ``_commodity``) and
+auction pricing (period 60, seed 5, ``_auction``); and the four at 4
+users x 25 jobs, whose work all lands on R8, so their windows hold R8
+(maintenance over [100, 200) and one PE over [300, 500)).  Each window
+cell must move ``term_time`` or ``spent`` against the same cell without
+windows, each pricing cell must write MARKET or AUCTION rows into its
+trace, and ``20u_100j_plan`` must differ from the same knobs without
+plan-ahead.
 Every float (inputs and results) is stored as its uint32 bit pattern,
 so the comparison is bitwise and needs no JAX.
 """
@@ -42,13 +55,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.core import engine, gridlet, rand, resource, simulation, types
+from repro.core import (des, engine, gridlet, rand, reservation, resource,
+                        simulation, types)
 
 HERE = os.path.dirname(__file__)
 OUT = os.path.join(HERE, "port_ref_main.json")
 OUT_NET = os.path.join(HERE, "port_ref_net.json")
 OUT_FAIL = os.path.join(HERE, "port_ref_fail.json")
 OUT_RAND = os.path.join(HERE, "port_ref_rand.json")
+OUT_ECON = os.path.join(HERE, "port_ref_econ.json")
 
 CELLS = (
     # name, n_users, n_jobs_per_user, fleet, deadline, budget
@@ -219,6 +234,59 @@ def fail_cell(name, n_users, n_jobs, knobs, net):
     return out
 
 
+# The grid economy (reservations, maintenance, pricing, plan-ahead) on
+# analytic links.  At 4 users x 25 jobs all the work lands on R8, so the
+# small cells' windows hold R8.
+_NUM_PE = [int(p) for p in np.asarray(resource.wwg_fleet().num_pe)]
+RESV = [(7, 8, 0.0, 1000.0)] + reservation.maintenance(
+    _NUM_PE, [(8, 200.0, 400.0), (4, 600.0, 700.0)])
+SMALL_RESV = reservation.maintenance(_NUM_PE, [(8, 100.0, 200.0)]) + \
+    [(8, 1, 300.0, 500.0)]
+PLAN = dict(plan_ahead=True, policy=types.OPT_COST_TIME)
+COMMODITY = dict(pricing_model="commodity", market_period=60.0,
+                 market_gain=0.25)
+AUCTION = dict(pricing_model="auction", auction_period=60.0, seed=5)
+ECON_CELLS = (
+    # name, n_users, n_jobs_per_user, scenario knobs
+    ("20u_100j_resv", 20, 100, dict(reservations=RESV)),
+    ("20u_100j_plan", 20, 100, dict(reservations=RESV, **PLAN)),
+    ("20u_100j_commodity", 20, 100, COMMODITY),
+    ("20u_100j_auction", 20, 100, AUCTION),
+    ("4u_25j_resv", 4, 25, dict(reservations=SMALL_RESV)),
+    ("4u_25j_plan", 4, 25, dict(reservations=SMALL_RESV, **PLAN)),
+    ("4u_25j_commodity", 4, 25, COMMODITY),
+    ("4u_25j_auction", 4, 25, AUCTION),
+)
+
+
+def econ_cells():
+    """port_ref_econ.json's cells, each checked to exercise its path."""
+    cells, runs = {}, {}
+    for name, u, nj, knobs in ECON_CELLS:
+        cells[name], runs[name] = scenario_cell(name, u, nj, knobs,
+                                                net=False)
+    for name, u, nj, knobs in ECON_CELLS:
+        r = cells[name]["result"]
+        if "reservations" in knobs:
+            no_windows = {k: v for k, v in knobs.items()
+                          if k != "reservations"}
+            plain = scenario_cell(name, u, nj, no_windows,
+                                  net=False)[0]["result"]
+            assert (r["term_time"], r["spent"]) != \
+                (plain["term_time"], plain["spent"]), name
+        else:
+            kind = des.K_MARKET if "market_period" in knobs else \
+                des.K_AUCTION
+            assert kind in r["trace_kind"], name
+    no_plan = dict(ECON_CELLS[1][3], plan_ahead=False)
+    plain = scenario_cell("20u_100j_plan", 20, 100, no_plan,
+                          net=False)[0]["result"]
+    r = cells["20u_100j_plan"]["result"]
+    assert (r["term_time"], r["spent"], r["trace_t"]) != \
+        (plain["term_time"], plain["spent"], plain["trace_t"])
+    return cells
+
+
 RAND_SEEDS = (0, 1, 3, 7)
 N_WORDS = 4096
 
@@ -312,7 +380,7 @@ def _header(about):
     }
 
 
-def main(which=("main", "net", "fail", "rand")):
+def main(which=("main", "net", "fail", "rand", "econ")):
     if "main" in which:
         ref = dict(_header("JAX reference results for the port's "
                            "main-path cells"),
@@ -349,7 +417,13 @@ def main(which=("main", "net", "fail", "rand")):
         with open(OUT_RAND, "w") as f:
             json.dump(ref, f, separators=(",", ":"))
         print(f"wrote {OUT_RAND}")
+    if "econ" in which:
+        ref = dict(_header("JAX reference results for the port's "
+                           "grid-economy cells"), cells=econ_cells())
+        with open(OUT_ECON, "w") as f:
+            json.dump(ref, f, separators=(",", ":"))
+        print(f"wrote {OUT_ECON}")
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("main", "net", "fail", "rand"))
+    main(tuple(sys.argv[1:]) or ("main", "net", "fail", "rand", "econ"))

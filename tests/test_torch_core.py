@@ -1,8 +1,9 @@
 """The port's leaf modules against the JAX reference: fleet tables,
-calendar, economy, network delays, segmented ranks and sums, the
-reference-order float helpers, the threefry PRNG and XLA:CPU's log1p and
-exp2, the gridlet table and the event queue.  Inputs are numpy arrays
-made from a seed; floats compare bit for bit."""
+calendar, economy (the pricing rounds too), network delays, segmented
+ranks and sums, the reference-order float helpers, the threefry PRNG and
+XLA:CPU's log1p and exp2, reservation tables and the booking calendar,
+the GIS, the gridlet table and the event queue.  Inputs are numpy
+arrays made from a seed; floats compare bit for bit."""
 import dataclasses
 import gc
 import hashlib
@@ -18,15 +19,18 @@ import torch
 from repro.core import calendar as jcal
 from repro.core import des as jdes
 from repro.core import economy as jecon
+from repro.core import gis as jgis
 from repro.core import gridlet as jgrid
 from repro.core import network as jnet
 from repro.core import rand as jrand
+from repro.core import reservation as jresv
 from repro.core import resource as jres
 from repro.core import segments as jseg
 from repro.core import types as jtypes
 from repro_torch import convert
-from repro_torch.core import (calendar, des, economy, gridlet, network,
-                              numerics, rand, resource, segments, types)
+from repro_torch.core import (calendar, des, economy, gis, gridlet,
+                              network, numerics, rand, reservation,
+                              resource, segments, types)
 
 # The tensors here are tiny: intra-op threads would only contend with
 # the other test workers.
@@ -480,3 +484,205 @@ def test_gridlets_and_event_queue_match_reference():
     _check_task_farm_and_real_draws()
     _check_event_queue()
     _check_event_source_contract()
+
+
+# ----------------------------------------------------------------------
+# The grid economy's leaves: pricing rounds, reservation tables, the GIS
+# ----------------------------------------------------------------------
+
+def _check_commodity_reprice():
+    """Jitted ``commodity_reprice`` on demands at 0, at 1, far above the
+    cap and random, with a gain whose ``1 + gain * (d - 1)`` rounds twice
+    unless fused (0.3) and the engine's default (0.25)."""
+    rng = np.random.RandomState(0)
+    n = 512
+    base = rng.uniform(1e-4, 3.0, n).astype(np.float32)
+    price = (base * rng.uniform(0.5, 2.0, n)).astype(np.float32)
+    demand = np.concatenate([np.zeros(16), np.ones(16), np.full(16, 1e4),
+                             rng.uniform(0.0, 40.0, n - 48)]).astype(
+        np.float32)
+    ref_fn = jax.jit(jecon.commodity_reprice)
+    for gain, floor, cap in ((0.25, 0.5, 2.0), (0.3, 0.45, 1.7)):
+        want = ref_fn(price, base, demand, np.float32(gain),
+                      np.float32(floor), np.float32(cap))
+        t = [torch.from_numpy(x) for x in (price, base, demand)]
+        got = economy.commodity_reprice(*t, torch.tensor(gain),
+                                        torch.tensor(floor),
+                                        torch.tensor(cap))
+        _eq(got, want, f"commodity gain {gain}")
+    # the draws tell the fused form from two roundings
+    plain = torch.clamp(t[0] * (1.0 + gain * (t[2] - 1.0)), t[1] * floor,
+                        t[1] * cap)
+    assert not np.array_equal(_bits(plain), _bits(want))
+
+
+def _check_auction_round():
+    """Jitted ``auction_round`` (``jax.random.uniform`` with ``minval`` /
+    ``maxval``: ``max(lo, u * (hi - lo) + lo)``, the multiply-add fused)
+    over a few hundred keys, and ``rand.uniform``'s bounded form alone."""
+    base = np.random.RandomState(1).uniform(1e-4, 3.0, 11).astype(np.float32)
+    ref_fn = jax.jit(jecon.auction_round)
+    for floor, cap in ((0.5, 2.0), (0.3, 1.7)):
+        got = [economy.auction_round(rand.PRNGKey(s), torch.from_numpy(base),
+                                     torch.tensor(floor), torch.tensor(cap))
+               for s in range(300)]
+        want = [ref_fn(jax.random.PRNGKey(s), base, np.float32(floor),
+                       np.float32(cap)) for s in range(300)]
+        _eq(torch.stack(got), np.stack(want), f"auction {floor} {cap}")
+    # the keys tell the fused form from two roundings
+    plain = [torch.from_numpy(base) * torch.clamp_min(
+        rand.uniform(rand.PRNGKey(s), (11,)) * (cap - floor) + floor, floor)
+        for s in range(300)]
+    assert not np.array_equal(_bits(torch.stack(plain)), _bits(np.stack(want)))
+    key = jax.random.PRNGKey(9)
+    want = jax.jit(lambda k: jax.random.uniform(
+        k, (4096,), minval=np.float32(-0.7), maxval=np.float32(3.1)))(key)
+    _eq(rand.uniform(rand.PRNGKey(9), (4096,), minval=-0.7, maxval=3.1),
+        want, "uniform minval/maxval")
+
+
+def _check_prices_stay_clamped():
+    """Twin of test_economy_invariants'
+    test_repriced_costs_stay_positive_finite_and_clamped on the port."""
+    rng = np.random.RandomState(0)
+    base = torch.tensor([0.004, 0.01, 2.5])
+    floor, cap, gain = 0.5, 2.0, 0.25
+    lo, hi = (base * floor).numpy(), (base * cap).numpy()
+    price = base
+    for _ in range(200):
+        demand = torch.from_numpy(rng.uniform(0.0, 8.0, 3).astype(np.float32))
+        price = economy.commodity_reprice(price, base, demand,
+                                          torch.tensor(gain),
+                                          torch.tensor(floor),
+                                          torch.tensor(cap))
+        p = price.numpy()
+        assert np.all(np.isfinite(p)) and np.all(p > 0.0)
+        assert np.all(p >= lo) and np.all(p <= hi)
+    for s in range(20):
+        p = economy.auction_round(rand.PRNGKey(s), base, torch.tensor(floor),
+                                  torch.tensor(cap)).numpy()
+        assert np.all(np.isfinite(p)) and np.all(p > 0.0)
+        assert np.all(p >= lo) and np.all(p <= hi)
+
+
+def test_pricing_rounds_match_jitted_reference():
+    """The MARKET and AUCTION arithmetic bitwise against the jitted
+    reference, and prices inside the clamp box."""
+    _check_commodity_reprice()
+    _check_auction_round()
+    _check_prices_stay_clamped()
+
+
+def _windows(k, seed, n_res=11):
+    """K random windows: some touching end to start, some overlapping,
+    boundaries on a grid of 10 so that instants land on them."""
+    rng = np.random.RandomState(seed)
+    res = rng.randint(0, n_res, k).astype(np.int32)
+    pes = rng.randint(1, 5, k).astype(np.int32)
+    start = (rng.randint(0, 30, k) * 10.0).astype(np.float32)
+    end = (start + rng.randint(1, 12, k) * 10.0).astype(np.float32)
+    if k > 2:                        # a window that touches the first one
+        res[1], start[1] = res[0], end[0]
+        end[1] = start[1] + 10.0
+    return res, pes, start, end
+
+
+def _check_window_tables():
+    """``active_pes``, ``boundary_candidates`` and ``next_boundary``
+    against the jitted reference for K = 0, 1 and 12, at instants on and
+    between boundaries; ``as_tables`` / ``empty_tables`` / ``maintenance``
+    give the reference's tables."""
+    for k, seed in ((0, 0), (1, 1), (12, 2), (12, 3)):
+        tab = _windows(k, seed)
+        ptab = tuple(torch.from_numpy(x) for x in tab)
+        ts = np.unique(np.concatenate([tab[2], tab[3], [0.0, 5.0, 1e4],
+                                       tab[2] + 5.0])).astype(np.float32)
+        for t in ts:
+            t = np.float32(t)
+            _eq(reservation.active_pes(*ptab, torch.tensor(t), 11),
+                jax.jit(jresv.active_pes, static_argnums=5)(*tab, t, 11),
+                f"active_pes K={k} t={t}")
+            _eq(reservation.boundary_candidates(ptab[2], ptab[3],
+                                                torch.tensor(t)),
+                jax.jit(jresv.boundary_candidates)(tab[2], tab[3], t),
+                f"boundary_candidates K={k} t={t}")
+            _eq(reservation.next_boundary(ptab[2], ptab[3], torch.tensor(t)),
+                jax.jit(jresv.next_boundary)(tab[2], tab[3], t),
+                f"next_boundary K={k} t={t}")
+    num_pe = np.array(jres.wwg_fleet().num_pe)
+    windows = [(8, 100.0, 200.0), (4, 600.0, 700.5)]
+    assert reservation.maintenance(torch.from_numpy(num_pe), windows) == \
+        jresv.maintenance(num_pe, windows)
+    bookings = jresv.maintenance(num_pe, windows) + [(7, 8, 0.0, 1e3)]
+    for got, want in zip(reservation.as_tables(bookings),
+                         jresv.as_tables(bookings)):
+        assert got.dtype == convert._DTYPES[np.asarray(want).dtype]
+        _eq(got, want, "as_tables")
+    for got, want in zip(reservation.empty_tables(), jresv.empty_tables()):
+        assert got.shape == (0,) and \
+            got.dtype == convert._DTYPES[np.asarray(want).dtype]
+
+
+def _check_booking_calendar():
+    """The reference's booking, conflict and validation cases
+    (tests/test_core_units.py, tests/test_network.py) on the port's
+    ``ReservationBook``, and its exported tables equal to the
+    reference's for the same bookings."""
+    book = reservation.ReservationBook([2, 4])
+    r1 = book.book(0, 1, 0.0, 10.0)
+    book.book(0, 1, 0.0, 10.0)
+    with pytest.raises(ValueError):
+        book.book(0, 1, 5.0, 15.0)       # both PEs held on [5, 10)
+    book.book(0, 2, 10.0, 20.0)          # back to back is fine
+    assert book.reserved_pes(0, 5.0) == 2
+    assert book.reserved_pes(0, 15.0) == 2
+    book.cancel(r1)
+    assert book.reserved_pes(0, 5.0) == 1
+    assert book.load_factor(1, 0.0) == 0.0
+    assert book.peak_usage(0, 0.0, 20.0) == 2
+    book = reservation.ReservationBook([2])
+    for bad in ((0, 0, 0.0, 1.0), (0, 1, 5.0, 5.0), (1, 1, 0.0, 1.0)):
+        with pytest.raises(ValueError):
+            book.book(*bad)
+    book = reservation.ReservationBook([4, 2])
+    book.book(0, 2, 10.0, 20.0)
+    with pytest.raises(ValueError):
+        book.book_maintenance(0, 15.0, 25.0)   # 2 PEs already held
+    res = book.book_maintenance(1, 0.0, 5.0)
+    assert res.pes == 2 and book.reserved_pes(1, 2.0) == 2
+    jbook = jresv.ReservationBook([4, 2])
+    book = reservation.ReservationBook([4, 2])
+    for b in (jbook, book):
+        b.book(1, 1, 30.0, 40.0)
+        b.book(0, 3, 5.0, 9.0)
+        b.book_maintenance(1, 0.0, 5.0)
+    for got, want in zip(book.as_tables(), jbook.as_tables()):
+        _eq(got, want, "book as_tables")
+
+
+def test_reservation_tables_and_booking_match_reference():
+    _check_window_tables()
+    _check_booking_calendar()
+
+
+def test_gis_register_deregister_on_the_port():
+    """Twin of tests/test_core_units.py::test_gis_register_deregister,
+    with the advertised rates held against the reference's."""
+    fleet = resource.wwg_fleet()
+    g = gis.init(fleet)
+    assert bool(gis.resource_list(g).all())
+    g = gis.deregister(g, 3)
+    rate, cost = gis.dynamics(g, fleet, 0.0)
+    assert float(rate[3]) == 0.0
+    assert float(rate[0]) > 0.0
+    jfleet = jres.wwg_fleet()
+    jg = jgis.deregister(jgis.init(jfleet), 3)
+    for t in (0.0, 130.0):
+        for got, want in zip(gis.dynamics(g, fleet, t),
+                             jgis.dynamics(jg, jfleet, t)):
+            _eq(got, want, f"dynamics t={t}")
+    g = gis.register(g, 3)
+    rate, _ = gis.dynamics(g, fleet, 0.0)
+    assert float(rate[3]) > 0.0
+    _eq(gis.resource_list(g), jgis.resource_list(jgis.register(jg, 3)),
+        "resource_list")

@@ -1,11 +1,13 @@
 """The port's slices end to end against the JAX reference: the Table 1
 trace through ``run_direct``, live ``run_experiment`` runs of the
 economic broker under every optimisation mode at batch 1 and 8, the
-committed 1u_200j, contended-network and dynamic-resource references
-replayed on the CPU, the failure, recovery, trace and failing-arrival
-applies on hand-built states, the quickstart's figures, and batch 8
-equal to batch 1.  Every integer, status, trace and float field is
-compared bit for bit."""
+committed 1u_200j, contended-network, dynamic-resource and grid-economy
+references replayed on the CPU, the failure, recovery, trace and
+failing-arrival applies and the broker's measurement and policy keys on
+hand-built states, the reference tests' reservation figures, the
+quickstart's and failure_recovery's figures, and batch 8 equal to
+batch 1.  Every integer, status, trace and float field is compared bit
+for bit."""
 import dataclasses
 import gc
 import json
@@ -16,14 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import broker as jbroker
+from repro.core import des as jdes
 from repro.core import engine as jeng
 from repro.core import gridlet as jgrid
+from repro.core import reservation as jresv
 from repro.core import resource as jres
 from repro.core import simulation as jsim
 from repro.core import types as jtypes
 from repro_torch import convert
-from repro_torch.core import (engine, gridlet, rand, resource, simulation,
-                              types)
+from repro_torch.core import (broker, calendar, des, engine, gridlet, rand,
+                              reservation, resource, simulation, types)
 
 # The tensors here are tiny: intra-op threads would only contend with
 # the other test workers.
@@ -49,6 +54,8 @@ REF_NET = os.path.join(os.path.dirname(__file__), "data",
                        "port_ref_net.json")
 REF_FAIL = os.path.join(os.path.dirname(__file__), "data",
                         "port_ref_fail.json")
+REF_ECON = os.path.join(os.path.dirname(__file__), "data",
+                        "port_ref_econ.json")
 GRIDLET_FIELDS = ("status", "resource", "assigned", "remaining", "t_event",
                   "start", "finish", "returned", "cost", "n_retries")
 COUNTERS = ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
@@ -310,10 +317,31 @@ def _check_params_carry_across():
     for f in dataclasses.fields(engine.SimParams):
         _eq(getattr(carried, f.name), getattr(ref, f.name), f.name)
         _eq(getattr(port, f.name), getattr(ref, f.name), f.name)
-    with pytest.raises(NotImplementedError):
-        convert.params(_leaves(jsim._scenario_params(
-            jfleet, 700.0, 9000.0, 0, 4,
-            jsim.Scenario(reservations=[(0, 1, 0.0, 5.0)]))))
+    # reservation windows (a book, tuples, maintenance), commodity and
+    # auction pricing with their knobs and seeds, plan-ahead
+    book = reservation.ReservationBook([int(p) for p in fleet.num_pe])
+    jbook = jresv.ReservationBook([int(p) for p in fleet.num_pe])
+    for b in (book, jbook):
+        b.book(3, 1, 40.0, 90.0)
+        b.book_maintenance(8, 10.0, 20.5)
+    windows = [(7, 8, 0.0, 1000.0)] + reservation.maintenance(
+        fleet.num_pe, [(8, 200.0, 400.0)])
+    for jknobs, knobs in (
+            (dict(reservations=jbook), dict(reservations=book)),
+            (dict(reservations=windows, pricing_model="commodity",
+                  market_period=60.0, market_gain=0.3), None),
+            (dict(pricing_model="auction", auction_period=15.0, seed=5,
+                  auction_seed=99, plan_ahead=True), None),
+            (dict(pricing_model="auction", seed=5), None)):
+        ref = jsim._scenario_params(jfleet, 700.0, 9000.0, 0, 4,
+                                    jsim.Scenario(**jknobs))
+        port = simulation._scenario_params(
+            fleet, 700.0, 9000.0, 0, 4, simulation.Scenario(**(
+                knobs or jknobs)))
+        carried = convert.params(_leaves(ref))
+        for f in dataclasses.fields(engine.SimParams):
+            _eq(getattr(carried, f.name), getattr(ref, f.name), f.name)
+            _eq(getattr(port, f.name), getattr(ref, f.name), f.name)
 
 
 # ----------------------------------------------------------------------
@@ -481,10 +509,11 @@ def test_committed_net_reference_replays_on_cpu():
 STATE_SKIP = ("g", "host", "width")      # port-only (or nested) fields
 
 
-def _hand_state(n=40, seed=0, knobs=None):
+def _hand_state(n=40, seed=0, knobs=None, net_cap=0):
     """A mid-run state on the WWG fleet, the same in both packages:
     gridlets of 4 users in every status, RUNNING ones holding job slots,
-    some resources down, the failure clocks and retry counts set."""
+    some resources down, the failure clocks and retry counts set
+    (``net_cap``: an empty transfer table of that width)."""
     rng = np.random.RandomState(seed)
     jfleet = jres.wwg_fleet()
     r = jfleet.r
@@ -514,7 +543,7 @@ def _hand_state(n=40, seed=0, knobs=None):
         cost=rng.uniform(0, 300, n).astype(np.float32),
         n_retries=rng.randint(0, 40, n).astype(np.int32),
         retry_at=rng.uniform(0, 240, n).astype(np.float32))
-    st = jeng.init_state(jg, jfleet, 4, params=params)
+    st = jeng.init_state(jg, jfleet, 4, params=params, net_cap=net_cap)
     rg = np.full(np.asarray(st.row_gridlet).shape, -1, np.int32)
     on = slot >= 0
     rg[res_of[on], slot[on]] = np.nonzero(on)[0]
@@ -535,10 +564,10 @@ def _hand_state(n=40, seed=0, knobs=None):
     fleet = convert.fleet(_leaves(jfleet))
     port_params = convert.params(_leaves(params))
     port = engine.init_state(convert.gridlets(_leaves(jg)), fleet, 4,
-                             params=port_params)
+                             params=port_params, net_cap=net_cap)
     port = types.replace(port, g=convert.gridlets(_leaves(st.g)), **{
         f.name: torch.from_numpy(np.array(getattr(st, f.name)).astype(
-            np.int64 if f.name == "rng_key" else
+            np.int64 if f.name in ("rng_key", "auction_key") else
             np.asarray(getattr(st, f.name)).dtype))
         for f in dataclasses.fields(engine.SimState)
         if f.name not in STATE_SKIP})
@@ -686,6 +715,264 @@ def test_quickstart_twin_on_the_port():
 
 
 # ----------------------------------------------------------------------
+# The grid economy: reservations, maintenance, pricing, plan-ahead
+# ----------------------------------------------------------------------
+
+# Three windows on R8 (one straddling t = 250, one past the deadlines,
+# one ending at t) and one each on R3 and R5.
+WINDOWS = [(8, 1, 200.0, 300.0), (8, 1, 260.0, 420.0), (8, 2, 850.0, 1200.0),
+           (3, 1, 100.0, 700.0), (5, 2, 950.0, 990.0), (8, 1, 249.5, 250.0)]
+# Per hand state (seed), one deadline a user (f32 bits) at which the
+# plan-ahead capacity est_jobs * window - blocked_jobs lies within an ulp
+# of an integer: there its floor tells one rounding (the reference's,
+# fused) from two; the caps are those of the reference.
+CRAFTED = {0: (0x442B4F02, 0x4522DB7A, 0x44CF0205, 0x43F7B7CF),
+           1: (0x44F9432C, 0x45089A9A, 0x44F7D1D8, 0x44C71B58),
+           2: (0x44B2D681, 0x44B1EBDA, 0x44E39483, 0x43F84987)}
+
+
+def _measure_state(seed, plan, started=True):
+    """A hand state with the windows, a transfer table holding queued
+    bytes on every link and, unless ``started``, no measured rate yet."""
+    knobs = dict(reservations=WINDOWS, plan_ahead=plan,
+                 policy=jtypes.OPT_COST_TIME, baud_rate=28_000.0,
+                 bg_flows=0.5)
+    (st, jfleet, params), (port, fleet, pparams) = _hand_state(
+        seed=seed, knobs=knobs, net_cap=40)
+    rng = np.random.RandomState(seed)
+    lr = np.where(rng.rand(16, 40) < 0.4, rng.uniform(1e3, 2e5, (16, 40)),
+                  0.0).astype(np.float32)
+    kw = dict(link_rem=lr)
+    if not started:
+        kw["first_dispatch"] = np.full((4, jfleet.r), np.inf, np.float32)
+    st = jtypes.replace(st, **kw)
+    port = types.replace(port, **{k: torch.from_numpy(v)
+                                  for k, v in kw.items()})
+    return (st, jfleet, params), (port, fleet, pparams)
+
+
+def test_broker_measure_and_policy_keys_match_reference(monkeypatch):
+    """``broker._measure`` (reactive and plan-ahead: windows straddling
+    t and past the deadline, queued link bytes) and ``_policy_keys``
+    (near-tie costs, both cost-time keys) against the reference's jitted
+    functions, bitwise on every field; the windows' PE-time contraction
+    against jitted ``einsum``; the plan-ahead capacity at deadlines where
+    its fused multiply-add decides the floor."""
+    measure = jax.jit(jbroker._measure, static_argnums=3)
+
+    def same(got, ref, msg):
+        assert set(got) == set(ref)
+        for k in ref:
+            _eq(got[k], ref[k], f"{msg}: {k}")
+
+    for seed in (0, 1, 2):
+        for plan in (False, True):
+            (st, jfleet, params), (port, fleet, pparams) = _measure_state(
+                seed, plan)
+            same(broker._measure(port, fleet, pparams, 4),
+                 measure(st, jfleet, params, 4), f"{seed} plan {plan}")
+        (st, jfleet, params), (port, fleet, pparams) = _measure_state(
+            seed, True, started=False)
+        dl = np.asarray(CRAFTED[seed], np.uint32).view(np.float32)
+        ref = measure(st, jfleet, jtypes.replace(params, deadline=dl), 4)
+        got = broker._measure(port, fleet, types.replace(
+            pparams, deadline=torch.from_numpy(dl)), 4)
+        same(got, ref, f"{seed} crafted deadlines")
+        # ... where two roundings give every user another cap
+        eff = calendar.effective_mips(fleet, port.t)
+        left = torch.clamp_min(torch.from_numpy(dl) - port.t, 0.0)
+        with monkeypatch.context() as m:
+            m.setattr(broker.numerics, "fma", lambda a, b, c: a * b + c)
+            twice = broker._plan_capacity(port, types.replace(
+                pparams, deadline=torch.from_numpy(dl)), eff, got["avg_mi"],
+                got["est_jobs"], left, jfleet.r)
+        assert bool((twice != got["cap_jobs"]).any(dim=1).all())
+    # the windows' PE-time sum: lanes of four and the tail, as the dot
+    einsum = jax.jit(lambda x, oh: jax.numpy.einsum("uk,rk->ur", x, oh))
+    for u, k in ((4, 3), (4, 6), (20, 7), (2, 12), (4, 43)):
+        rng = np.random.RandomState(k)
+        x = (rng.uniform(0, 1, (u, k)) *
+             10 ** rng.uniform(-3, 4, (u, k))).astype(np.float32)
+        res = rng.randint(0, 3, k).astype(np.int32)
+        oh = (res[None, :] == np.arange(11)[:, None]).astype(np.float32)
+        _eq(broker._window_pe_time(torch.from_numpy(x),
+                                   torch.from_numpy(res), 11),
+            einsum(x, oh), f"window PE-time U={u} K={k}")
+    keys = jax.jit(jbroker._policy_keys, static_argnums=4)
+    for seed in range(40):
+        rng = np.random.RandomState(seed)
+        cost = rng.choice([0.004, 0.0041, 0.01, 2.5], 11).astype(np.float32)
+        cost[rng.rand(11) < 0.3] = np.nextafter(cost[0], np.float32(1))
+        est = rng.uniform(0, 3, (4, 11)).astype(np.float32)
+        est[:, rng.rand(11) < 0.2] = 0.0
+        opt = rng.randint(0, 4, 4).astype(np.int32)
+        r = np.arange(11, dtype=np.float32)[None, :]
+        for plan in (False, True):
+            _eq(broker._policy_keys(torch.from_numpy(opt),
+                                    torch.from_numpy(cost)[None, :],
+                                    torch.from_numpy(est),
+                                    torch.from_numpy(r), plan),
+                keys(opt, cost[None, :], est, r, plan),
+                f"keys {seed} plan {plan}")
+
+
+def _direct(lengths, num_pe, policy, resv, batch=engine.DEFAULT_BATCH,
+            net_cap=0):
+    fleet = resource.make_fleet([num_pe], 1.0, 1.0, policy,
+                                baud_rate=float("inf"))
+    return engine.run_direct(gridlet.make_batch(torch.tensor(lengths)),
+                             fleet, 0, 0.0, 64, reservations=resv,
+                             batch=batch, net_cap=net_cap, device="cpu")
+
+
+def _kinds(res, kind):
+    tt, k, _ = (_np(x) for x in res.trace)
+    return tt[k == kind].tolist()
+
+
+def test_run_direct_reservation_figures_on_the_port():
+    """The figures of the reference's own reservation tests
+    (tests/test_superstep.py, tests/test_network.py) on the port: held
+    PEs admit half the arrivals, shares shrink, a boundary cuts the
+    speculation (batch 8 traces as batch 1), maintenance on space- and
+    time-shared rows; one of them with a transfer table too."""
+    ss, ts = jtypes.SPACE_SHARED, jtypes.TIME_SHARED
+    for net_cap in (0, 4):
+        r = _direct([20.0] * 4, 4, ss, [(0, 2, 0.0, 12.0)], net_cap=net_cap)
+        assert sorted(_np(r.gridlets.finish).tolist()) == [20, 20, 32, 32]
+        assert 12.0 in _kinds(r, jdes.K_RESERVATION)
+        assert int(r.overflow) == 0
+    r0 = _direct([20.0] * 4, 4, ss, None)
+    assert _np(r0.gridlets.finish).tolist() == [20.0] * 4
+    r = _direct([10.0, 10.0], 2, ts, [(0, 1, 0.0, 100.0)])
+    assert _np(r.gridlets.finish).tolist() == [20.0, 20.0]
+    resv = [(0, 1, 40.0, 45.0)]
+    free = _direct([10.0, 20.0, 30.0], 1, ts, None)
+    assert int(free.n_steps) == 1
+    r1 = _direct([10.0, 20.0, 30.0], 1, ts, resv, batch=1)
+    rk = _direct([10.0, 20.0, 30.0], 1, ts, resv)
+    assert _np(rk.gridlets.finish).tolist() == [30.0, 55.0, 65.0]
+    for a, b, name in zip(r1.trace, rk.trace, "tkw"):
+        _eq(a, b, f"trace {name}")
+    assert int(r1.n_steps) == int(rk.n_steps) + int(rk.n_spec)
+    assert int(rk.n_steps) >= 3
+    maint = reservation.maintenance([2], [(0, 0.0, 5.0)])
+    r = _direct([10.0, 10.0], 2, ss, maint)
+    assert _np(r.gridlets.finish).tolist() == [15.0, 15.0]
+    assert _kinds(r, jdes.K_RESERVATION) == [5.0]
+    r = _direct([10.0], 1, ts, reservation.maintenance([1], [(0, 4.0, 6.0)]))
+    assert _np(r.gridlets.finish).tolist() == [12.0]
+
+
+ECON_SMALL = ("4u_25j_resv", "4u_25j_plan", "4u_25j_commodity",
+              "4u_25j_auction")
+
+
+@pytest.mark.parametrize("name", ECON_SMALL)
+def test_committed_econ_reference_replays_on_cpu(name):
+    """Reservations and maintenance windows on R8, the plan-ahead broker,
+    commodity and auction pricing, replayed bitwise from
+    tests/data/port_ref_econ.json."""
+    with open(REF_ECON) as f:
+        c = json.load(f)["cells"][name]
+    res = _replay_cell(c, 0)[0]
+    _check_net_cell(c, res)
+    kinds = _np(res.trace[1]).tolist()
+    want = {"resv": jdes.K_RESERVATION, "plan": jdes.K_RESERVATION,
+            "commodity": jdes.K_MARKET, "auction": jdes.K_AUCTION}
+    assert want[name.split("_")[-1]] in kinds
+
+
+def test_econ_batch8_equals_batch1():
+    """Window boundaries and auction rounds cut the speculation horizon:
+    batch 8 gives the batch 1 run bit for bit, and folds supersteps."""
+    with open(REF_ECON) as f:
+        cells = json.load(f)["cells"]
+    for name in ("4u_25j_resv", "4u_25j_auction"):
+        one = _replay_cell(cells[name], 0, batch=1)[0]
+        eight = _replay_cell(cells[name], 0, batch=8)[0]
+        _assert_same_run(eight, one, counters=("n_events", "overflow"))
+        assert int(eight.n_steps) + int(eight.n_spec) == int(one.n_steps)
+        assert int(eight.n_spec) > 0
+
+
+def _invariants_run(sc, seed=0):
+    """tests/test_economy_invariants.py's ``_run`` on the port."""
+    fleet = resource.make_fleet([2, 4], [300.0, 500.0], [2.0, 5.0],
+                                [jtypes.TIME_SHARED, jtypes.SPACE_SHARED])
+    g = gridlet.task_farm(rand.PRNGKey(seed), n_jobs=8, n_users=2)
+    params = simulation._scenario_params(fleet, 500.0, 20_000.0,
+                                         jtypes.OPT_COST, 2, sc)
+    res = engine.run(g, fleet, params, 2, 4096, batch=1, device="cpu")
+    assert int(res.n_steps) + int(res.n_spec) < 4096
+    return res
+
+
+def test_pricing_twins_on_the_port():
+    """Twins of test_economy_invariants' auction determinism and engine
+    clamp tests: the same seed replays bitwise, another auction seed
+    moves the dispatch costs, and the MARKET and AUCTION sources keep
+    the posted price inside [floor, cap] x base over many rounds."""
+    sc = simulation.Scenario(pricing_model="auction", auction_period=20.0,
+                             seed=4)
+    a, b = _invariants_run(sc), _invariants_run(sc)
+    assert (_np(a.trace[1]) == jdes.K_AUCTION).sum() >= 1
+    for f in ("spent", "term_time", "n_events"):
+        _eq(getattr(a, f), getattr(b, f), f)
+    for x, y, name in zip(a.trace, b.trace, "tkw"):
+        _eq(x, y, f"trace {name}")
+    c = _invariants_run(sc._replace(auction_seed=99))
+    assert not np.array_equal(_np(a.gridlets.cost), _np(c.gridlets.cost))
+    fleet = resource.make_fleet([2, 4], [300.0, 500.0], [2.0, 5.0],
+                                [jtypes.TIME_SHARED, jtypes.SPACE_SHARED])
+    g = gridlet.task_farm(rand.PRNGKey(1), n_jobs=6, n_users=2)
+    for model, kind in (("commodity", des.K_MARKET),
+                        ("auction", des.K_AUCTION)):
+        params = simulation._scenario_params(
+            fleet, 500.0, 20_000.0, jtypes.OPT_COST, 2,
+            simulation.Scenario(pricing_model=model, market_period=10.0,
+                                auction_period=10.0, seed=2))
+        state = engine.init_state(g, fleet, 2, params=params)
+        src = {s.kind: s for s in engine._make_sources(fleet, params, 2,
+                                                       {})}[kind]
+        base = fleet.cost_per_mi()
+        lo, hi = base * params.price_floor, base * params.price_cap
+        now = 10.0
+        for _ in range(50):
+            state = src.apply(state, torch.tensor(now))
+            p = state.price
+            assert bool(torch.isfinite(p).all()) and bool((p > 0).all())
+            assert bool((p >= lo).all()) and bool((p <= hi).all())
+            now += 10.0
+        assert float(state.next_market if kind == des.K_MARKET
+                     else state.next_auction) == now
+
+
+def test_failure_recovery_maintenance_twin_on_the_port():
+    """examples/failure_recovery.py's maintenance run on the port: R2
+    held over [100, 160) on the example's 3-resource fleet fails
+    nothing, resubmits nothing, finishes all 40 gridlets and spends more
+    than the run without the window."""
+    fleet = resource.make_fleet(
+        num_pe=[4, 2, 2], mips_per_pe=[500.0, 400.0, 380.0],
+        cost_per_sec=[8.0, 4.0, 2.0], policy=jtypes.TIME_SHARED,
+        baud_rate=float("inf"))
+    farm = gridlet.task_farm(rand.PRNGKey(7), n_jobs=40, base_mi=10_000.0)
+    kw = dict(deadline=600.0, budget=12000.0, opt=jtypes.OPT_COST,
+              device="cpu")
+    baseline = simulation.run_experiment(farm, fleet, **kw)
+    maint = simulation.run_experiment(
+        farm, fleet, scenario=simulation.Scenario(
+            reservations=reservation.maintenance(fleet.num_pe,
+                                                 [(2, 100.0, 160.0)])),
+        **kw)
+    assert int(maint.n_failed) == 0 and int(maint.n_resubmits) == 0
+    assert int(maint.n_done[0]) == 40
+    assert float(maint.spent[0]) > float(baseline.spent[0])
+    assert jdes.K_RESERVATION in _np(maint.trace[1]).tolist()
+
+
+# ----------------------------------------------------------------------
 # What the port refuses
 # ----------------------------------------------------------------------
 
@@ -694,9 +981,6 @@ def _tiny():
 
 
 UNPORTED_SETTINGS = (
-    dict(scenario=simulation.Scenario(reservations=[(0, 1, 0.0, 5.0)])),
-    dict(scenario=simulation.Scenario(pricing_model="auction")),
-    dict(scenario=simulation.Scenario(plan_ahead=True)),
     dict(telemetry=16),
 )
 
@@ -711,9 +995,6 @@ def test_unported_settings_and_entry_points_raise():
                engine.run_inner, engine.run_sweep, engine.run_sweep_lanes):
         with pytest.raises(NotImplementedError):
             fn(g, fleet)
-    with pytest.raises(NotImplementedError):
-        engine.run_direct(g, fleet, 0, 0.0, 16, net_cap=4,
-                          reservations=[(0, 1, 0.0, 5.0)], device="cpu")
 
 
 def test_cuda_by_default_raises_without_a_card():

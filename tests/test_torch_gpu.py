@@ -2,8 +2,9 @@
 version (bitwise, but for ssd_scan and flash_attention, held at the
 reference's kernel-vs-oracle tolerances), the threefry draws on the card
 equal to the CPU's, and small experiments (analytic links, contended
-links behind a trunk, failure streams and a fault trace) on the card
-equal to the same experiments on the CPU.  Marked ``gpu``; where ``torch.cuda`` is not
+links behind a trunk, failure streams and a fault trace, reservation
+windows, pricing and the plan-ahead broker) on the card equal to the
+same experiments on the CPU.  Marked ``gpu``; where ``torch.cuda`` is not
 available every test skips.  Run on a card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -13,7 +14,8 @@ import math
 import pytest
 import torch
 
-from repro_torch.core import gridlet, rand, resource, simulation
+from repro_torch.core import (gridlet, rand, reservation, resource,
+                              simulation, types)
 from repro_torch.kernels import event_scan as ek
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
@@ -455,6 +457,28 @@ def test_experiment_on_the_card_equals_cpu(cuda):
             for d in ("cpu", cuda)]
     _same_runs(runs)
     assert ek.LAUNCHES["link_scan"] > 0
+
+
+def test_economy_on_the_card_equals_cpu(cuda):
+    """Reservation and maintenance windows on R8 (reactive and plan-ahead
+    broker), commodity and auction pricing: the card's runs equal the
+    CPU's."""
+    farm = gridlet.task_farm(rand.PRNGKey(3), n_jobs=25, n_users=4)
+    fleet = resource.wwg_fleet()
+    windows = reservation.maintenance(fleet.num_pe, [(8, 100.0, 200.0)]) + \
+        [(8, 1, 300.0, 500.0)]
+    for scenario in (
+            simulation.Scenario(reservations=windows),
+            simulation.Scenario(reservations=windows, plan_ahead=True,
+                                policy=types.OPT_COST_TIME),
+            simulation.Scenario(pricing_model="commodity",
+                                market_period=60.0),
+            simulation.Scenario(pricing_model="auction",
+                                auction_period=60.0, seed=5)):
+        _same_runs([simulation.run_experiment(farm, fleet, 2000.0, 22000.0,
+                                              n_users=4, scenario=scenario,
+                                              device=d)
+                    for d in ("cpu", cuda)])
 
 
 def test_threefry_and_dynamic_resources_on_the_card_equal_cpu(cuda):
