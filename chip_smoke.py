@@ -20,7 +20,9 @@ Phases (any failure exits non-zero before the result line):
                map, carried rank checked on the device) with the carry
                kept, the carry's flag off, and a carry that fails in one
                row only (every row reseeds), each with its reseed count;
-               the one-launch frontier; link_scan with and without the
+               the one-launch frontier; the lane forms of the checked scan
+               and the frontier at the Figs 21-24 grid's shapes ([144, 16,
+               32], [144, C]); link_scan with and without the
                trunk cap, also with tie keys that tie at t_min in every way
                its argmin tells apart, and its engine form (tie key from the
                slot map, trunk occupancy and caps in the kernel) with and
@@ -48,6 +50,17 @@ Phases (any failure exits non-zero before the result line):
                read just after) and the plain versions never; each cell
                prints its wall, supersteps, reseeds, host syncs and
                kernel launches per superstep and its failures;
+   sweep    -- the lane-batched sweep engine on the card against
+               tests/data/port_ref_sweep.json: the paper's Figs 21-24
+               grid (``simulation.sweep``, 8 deadlines x 18 budgets, 200
+               gridlets, L = 144 lanes), the sweep bench's 2 x 2 grid at
+               20 users and its four strategy lanes
+               (``engine.run_sweep_lanes``), every lane bitwise with its
+               "how" counters; both lane kernels launched and no plain
+               version; each cell's wall, loop iterations and host syncs
+               a loop iteration, then the grid's slowest lane alone
+               (L = 1): its host syncs a loop iteration may exceed the
+               lane's by 2 at most;
    rand     -- the threefry on the card: ``rand.exponential``'s
                ``-log1p(-u)`` over all 2**23 f32 uniforms, its SHA-256
                against jitted JAX's (tests/data/port_ref_rand.json), and
@@ -87,8 +100,12 @@ Phases (any failure exits non-zero before the result line):
                20u_100j_trunk, 20u_100j_resv and 20u_100j_auction under
                the profiler: device busy time,
                idle share, kernel launches, link_scan launches and host
-               syncs per superstep, top kernels.  Last: the profiler drops
-               records now and then, and more after a profile this large.
+               syncs per superstep, top kernels; then the first
+               SWEEP_WINDOW supersteps of every lane of each sweep cell
+               and of the grid's slowest lane alone (device idle share,
+               kernel launches a loop iteration: the grid's may be twice
+               the lane's at most).  Last: the profiler drops records now
+               and then, and more after a profile this large.
 
 Prints a ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.  Imports no JAX.
@@ -100,6 +117,11 @@ attention kernel's device times at the f32 FLASH_CASES shapes and the
 profile windows, with no check and no result line: those use only what
 earlier trees of the port also have, so a copy of this script beside an
 earlier tree's ``src`` measures that tree the same way.
+
+    python3 chip_smoke.py --sweep
+
+runs only the card line, the build, the lane kernels' checks, the sweep
+phase and the sweep windows (no result line).
 """
 from __future__ import annotations
 
@@ -129,6 +151,15 @@ TRUNK_CELL = "20u_100j_trunknet"
 NET_CELLS = (NET_CELL, TRUNK_CELL)
 FAIL_CELLS = ("20u_100j_fail", "20u_100j_trunk")
 ECON_WINDOWS = ("20u_100j_resv", "20u_100j_auction")
+# the sweep engine's cells (tests/data/port_ref_sweep.json): the paper's
+# Figs 21-24 grid (8 deadlines x 18 budgets, L = 144 lanes), the sweep
+# bench's 2 x 2 grid and the four strategy lanes
+SWEEP_GRID = "sweep_1u_200j_8x18"
+SWEEP_CELLS = (SWEEP_GRID, "sweep_20u_25j_2x2", "strategies_20u_25j")
+SWEEP_PATH = ("event_scan_lanes", "event_frontier_lanes")
+# supersteps a lane of each profiled sweep window runs (its first
+# iterations)
+SWEEP_WINDOW = 10
 # cell -> (reference file, the kernels its path runs)
 PATH = ("event_scan", "event_frontier")
 NET_PATH = PATH + ("link_scan",)
@@ -148,10 +179,10 @@ CELLS = {"20u_100j": ("port_ref_main.json", PATH),
 SCAN_SHAPES = ((16, 32), (16, 640), (16, 2000), (8, 640))
 LINK_SHAPES = ((16, 640), (16, 32), (8, 2000))
 # Supersteps of each profiled window (300 until the eighth window was
-# added): the profiler's post-processing of a window's kernel records
-# is most of the profile phase's time, which the script's time limit
-# bounds.
-WINDOW = 150
+# added, 150 until the sweep windows were): the profiler's
+# post-processing of a window's kernel records is most of the profile
+# phase's time, which the script's time limit bounds.
+WINDOW = 50
 # The kernel-API phase: job tables of 20u_100j, 4u_512j and the fleet
 # scale of the reference's slab test; SSD layers (name, B, S, H, P, N,
 # chunk, x dtype, draws of dt and A: "test" as tests/test_kernels.py
@@ -191,6 +222,9 @@ KERNEL_NAME = {"event_scan": ("event_scan_kernel",),
                "event_scan checked": ("event_scan_check_kernel",
                                       "event_scan_kernel"),
                "event_frontier": ("event_frontier_kernel",),
+               "event_scan_lanes": ("event_scan_check_kernel",
+                                    "event_scan_kernel"),
+               "event_frontier_lanes": ("event_frontier_kernel",),
                "link_scan": ("link_scan_kernel",),
                "event_scan_slab": ("event_scan_slab_kernel",),
                "ssd_scan": ("ssd_states_kernel", "ssd_pass_kernel",
@@ -203,6 +237,8 @@ SOURCE = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                              "flash_attention.cu"}
 REPLACES = {"event_scan": "src/repro/kernels/event_scan.py:353",
             "event_frontier": "src/repro/kernels/event_scan.py:1009",
+            "event_scan_lanes": "src/repro/kernels/event_scan.py:353",
+            "event_frontier_lanes": "src/repro/kernels/event_scan.py:1009",
             "link_scan": "src/repro/kernels/event_scan.py:872",
             "event_scan_slab": "src/repro/kernels/event_scan.py:677",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:104",
@@ -900,6 +936,304 @@ def check_cell(name, c, res):
     return bad
 
 
+def load_sweep_cells(dev):
+    """Each sweep cell's record, gridlets and fleet
+    (tests/data/port_ref_sweep.json)."""
+    from repro_torch.core import gridlet, resource
+    with open(os.path.join(ROOT, "tests", "data",
+                           "port_ref_sweep.json")) as f:
+        cells = json.load(f)["cells"]
+    out = {}
+    for name in SWEEP_CELLS:
+        c = cells[name]
+        fl = c["fleet"]
+        fleet = resource.make_fleet(
+            fl["num_pe"], f32_tensor(fl["mips_per_pe"]),
+            f32_tensor(fl["cost_per_sec"]), fl["policy"],
+            time_zone=f32_tensor(fl["time_zone"]),
+            baud_rate=f32_tensor(fl["baud_rate"]), device=dev)
+        u, nj = c["n_users"], c["n_jobs_per_user"]
+        g = gridlet.make_batch(
+            f32_tensor(c["length_mi"]),
+            user=torch.arange(u, dtype=torch.int32).repeat_interleave(nj),
+            device=dev)
+        out[name] = (c, g, fleet)
+    return out
+
+
+def f32_tensor(bits):
+    return torch.from_numpy(np.asarray(bits, np.uint32).view(
+        np.float32).copy())
+
+
+def sweep_lanes(c, g, fleet, dev, lanes=None, max_events=None):
+    """A sweep cell through the lane-batched engine on ``dev``: a grid
+    cell as ``simulation.sweep`` runs it (its lanes deadline-major), a
+    strategy cell as ``engine.run_sweep_lanes`` over ``Scenario(policy=)``
+    lanes; ``lanes`` picks some of them (a lane index list), and
+    ``max_events`` cuts every lane's supersteps.  Returns the summarized
+    lane-batched result."""
+    from repro_torch.core import engine, simulation
+    u = c["n_users"]
+    if c["kind"] == "grid":
+        scen = simulation.Scenario(**c["scenario"])
+        dl = f32_tensor(c["deadlines"])
+        bl = f32_tensor(c["budgets"])
+        if lanes is None and max_events is None:   # the user's entry point
+            out = simulation.sweep(g, fleet, dl, bl, opt=c["opt"], n_users=u,
+                                   scenario=scen, device=dev)
+            return engine._tree_map(
+                lambda x: x.reshape((-1,) + x.shape[2:]), out)
+        template = simulation._scenario_params(fleet, 0.0, 0.0, c["opt"], u,
+                                               scen, dev)
+        params = simulation._lane_points(
+            template, dl.repeat_interleave(len(bl)), bl.repeat(len(dl)), u)
+    else:
+        params = engine._stack([simulation._scenario_params(
+            fleet, c["deadline"], c["budget"], 0, u,
+            simulation.Scenario(policy=opt), dev) for opt in c["policies"]])
+    if lanes is not None:
+        params = engine._stack([engine._lane(params, i) for i in lanes])
+    m_ev = c["max_events"] if max_events is None else max_events
+    res = engine.run_sweep_lanes(g, fleet, params, u, m_ev, c["max_jobs"],
+                                 batch=c["batch"], device=dev)
+    return simulation.summarize(res, params, u, fleet.r, m_ev)
+
+
+def check_sweep_cell(name, c, out, lanes=None):
+    """Every lane bitwise against the record: the small fields and the
+    trace in full, the per-gridlet fields by the SHA-256 of their bytes
+    (or in full where the record holds them), and the "how" counters;
+    returns failures."""
+    from repro_torch.core import engine
+    bad = []
+    lanes = range(len(c["lanes"])) if lanes is None else lanes
+    if out.spent.shape[0] != len(lanes):
+        return [f"{name}: {out.spent.shape[0]} lanes, {len(lanes)} recorded"]
+    for got_i, i in enumerate(lanes):
+        w = c["lanes"][i]
+        lane = engine._lane(out, got_i)
+
+        def words(t):
+            t = t.detach().cpu().contiguous()
+            if t.dtype == torch.float32:
+                t = t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            return t.reshape(-1).tolist()
+
+        got = {"n_done": words(lane.n_done), "spent": words(lane.spent),
+               "term_time": words(lane.term_time),
+               "per_resource_done": words(lane.per_resource_done),
+               "trace_t": words(lane.trace[0]),
+               "trace_kind": words(lane.trace[1]),
+               "trace_who": words(lane.trace[2]),
+               "truncated": bool(lane.truncated)}
+        for key in ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
+                    "overflow"):
+            got[key] = int(getattr(lane, key))
+        for key, dtype in (("status", np.int32), ("resource", np.int32),
+                           ("start", np.float32), ("finish", np.float32),
+                           ("returned", np.float32), ("cost", np.float32)):
+            x = getattr(lane.gridlets, key).detach().cpu().numpy()
+            got[key] = (hashlib.sha256(np.ascontiguousarray(
+                x.astype(dtype)).tobytes()).hexdigest()
+                if isinstance(w[key], str) else words(torch.from_numpy(x)))
+        for key, value in got.items():
+            if value != w[key]:
+                bad.append(f"{name} lane {i}.{key}")
+    return bad
+
+
+def lane_kernel_checks(dev, gen, failures):
+    """The lane forms against their plain versions at the Figs 21-24
+    grid's shapes: the checked scan over [144, 16, 32] (lanes of every
+    carry case, their flags on and off) with and without the reseed,
+    fresh outputs and then a Scratch twice; the frontier over [144, C]
+    of the 1u_200j commit layout, with and without cuts, and through a
+    Scratch.  Returns the largest |kernel - plain| of each."""
+    from repro_torch.kernels import event_scan as ek
+    errs = {"event_scan_lanes": 0.0, "event_frontier_lanes": 0.0}
+    n_lanes, r, j = 144, 16, 32
+    cases = [checked_inputs(r, j, gen, dev) for _ in range(4)]
+    args, ranks, flags = [], [], []
+    for i in range(n_lanes):
+        a, carries = cases[i % 4]
+        case, carry, flag = CHECKED_CASES[i % 3]
+        args.append(a)
+        ranks.append(carries[carry])
+        flags.append(flag)
+    args = [torch.stack(x) for x in zip(*args)]
+    rank = torch.stack(ranks)
+    flag = torch.tensor(flags, device=dev)
+    names = ("rate", "t_min", "argmin", "occ", "rank")
+    scratch = ek.Scratch()
+    for reseed in (True, False):
+        want, use = ek.event_scan_checked_lanes_ref(*args, rank, flag,
+                                                    reseed=reseed)
+        outs = [ek.event_scan_checked_lanes_cuda(*args, rank, flag,
+                                                 reseed=reseed, scratch=sc)
+                for sc in (None, scratch, scratch)]
+        torch.cuda.synchronize()
+        same = [all(bits_equal(a, o[0][i]) for o in outs)
+                for i, a in enumerate(want)]
+        same_use = all(bits_equal(use, o[1]) for o in outs)
+        errs["event_scan_lanes"] = max([errs["event_scan_lanes"]] + [
+            abs_err(a, b) for a, b in zip(want, outs[0][0])])
+        print(f"event_scan checked lanes [{n_lanes},{r},{j}] reseed "
+              f"{reseed}: " + " ".join(
+                  f"{n}={'ok' if x else 'DIFF'}" for n, x in zip(names, same))
+              + f" use={'ok' if same_use else 'DIFF'} ({int(use.sum())} of "
+              f"{n_lanes} carries held; scratch twice)", flush=True)
+        if not all(same) or not same_use:
+            failures.append(f"event_scan lanes reseed {reseed}")
+    sizes = engine_layout(1, 200, 11, r)
+    cand = torch.stack([frontier_inputs(sizes, gen, dev)[0]
+                        for _ in range(n_lanes)])
+    cuts = torch.rand(cand.shape, generator=gen).to(dev) < 0.7
+    for use_cuts in (None, cuts):
+        want = ek.event_frontier_lanes_ref(cand, sizes, use_cuts)
+        outs = [ek.event_frontier_lanes_cuda(cand, sizes, use_cuts)]
+        if use_cuts is None:
+            outs += [ek.event_frontier_lanes_cuda(cand, sizes,
+                                                  scratch=scratch)
+                     for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(bits_equal(a, o[i]) for o in outs
+                   for i, a in enumerate(want))
+        errs["event_frontier_lanes"] = max([errs["event_frontier_lanes"]] + [
+            abs_err(a, b) for a, b in zip(want, outs[0])])
+        print(f"event_frontier lanes [{n_lanes},{sum(sizes)}] cuts "
+              f"{'yes' if use_cuts is not None else 'no'}: "
+              f"{'ok' if same else 'DIFF'}", flush=True)
+        if not same:
+            failures.append("event_frontier lanes")
+    return errs, (args, rank, flag, cand, sizes)
+
+
+def sweep_window(c, g, fleet, dev, lanes=None):
+    """The first SWEEP_WINDOW supersteps of every lane of a sweep cell,
+    once unprofiled (wall, iterations, host syncs) and once under the
+    profiler (device busy time, idle share, kernel launches a loop
+    iteration, top kernels).  Returns (launches, iterations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep_lanes(c, g, fleet, dev, lanes, max_events=SWEEP_WINDOW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sweep_lanes(c, g, fleet, dev, lanes, max_events=SWEEP_WINDOW)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in device_events(prof):
+        k = e.name.split("(")[0][-48:]
+        n, us = by_name.get(k, (0, 0.0))
+        by_name[k] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values()) / 1e6
+    n_kernels = sum(n for n, _ in by_name.values())
+    iters = int(out.n_steps.max())
+    print(f"window: {out.spent.shape[0]} lanes, {iters} loop iterations, "
+          f"wall {wall:.3f} s (unprofiled), device busy {busy:.3f} s, idle "
+          f"share {1 - busy / wall:.4f}, {n_kernels} kernel launches "
+          f"({n_kernels / iters:.1f} a loop iteration), host syncs "
+          f"{out.host_syncs} ({out.host_syncs / iters:.2f} a loop "
+          f"iteration)", flush=True)
+    for k, (n, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:8]:
+        print(f"  {k:48s} {n:7d} launches {us / 1e3:9.3f} ms", flush=True)
+    return n_kernels, iters
+
+
+def sweep_phase(dev, failures):
+    """The sweep engine on the card: each sweep cell against
+    tests/data/port_ref_sweep.json (every lane bitwise, "how" counters
+    included), both lane kernels launched (counts zeroed just before the
+    run, read just after) and no plain version; each cell's wall, loop
+    iterations and host syncs a loop iteration, then the same for the
+    Figs 21-24 grid's slowest lane alone through the lane engine (L = 1),
+    and a profiled window of each (kernel launches a loop iteration).
+    Fails if the grid's launches a loop iteration exceed twice its
+    slowest lane's, or its host syncs a loop iteration exceed the lane's
+    by more than 2.  Returns the lane kernels' launches on the grid."""
+    from repro_torch.kernels import event_scan as ek
+    cells = load_sweep_cells(dev)
+    launches, per_iter = {}, {}
+    for name in SWEEP_CELLS:
+        c, g, fleet = cells[name]
+        ek.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep_lanes(c, g, fleet, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = dict(ek.LAUNCHES), dict(ek.PLAIN_CALLS)
+        bad = check_sweep_cell(name, c, out)
+        iters = int(out.n_steps.max())
+        if name == SWEEP_GRID:
+            launches = {k: counts[k] for k in SWEEP_PATH}
+            slowest = int(torch.argmax(out.n_steps + out.n_spec))
+        print(f"{name}: {out.spent.shape[0]} lanes, wall {wall:.3f} s, "
+              f"{iters} loop iterations, supersteps {int(out.n_steps.sum())}"
+              f" + {int(out.n_spec.sum())} speculative over the lanes, "
+              f"reseeds {int(out.n_reseeds.sum())}, host syncs "
+              f"{out.host_syncs} ({out.host_syncs / iters:.2f} a loop "
+              f"iteration), lane kernel launches "
+              f"{ {k: counts[k] for k in SWEEP_PATH} } "
+              f"({ {k: round(counts[k] / iters, 3) for k in SWEEP_PATH} } a "
+              f"loop iteration), plain calls {plain}", flush=True)
+        print(f"{name}: " + ("every lane bitwise equal to the reference "
+                             "(the 'what' fields, the trace and the 'how' "
+                             "counters)" if not bad else "; ".join(bad[:20])),
+              flush=True)
+        failures += bad
+        if min(counts[k] for k in SWEEP_PATH) <= 0:
+            failures.append(f"{name}: a lane kernel was never launched")
+        if max(plain.values()) > 0:
+            failures.append(f"{name}: a plain version ran on the card")
+        per_iter[name] = (iters, out.host_syncs)
+    c, g, fleet = cells[SWEEP_GRID]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = sweep_lanes(c, g, fleet, dev, lanes=[slowest])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    failures += check_sweep_cell(f"{SWEEP_GRID} slowest", c, one,
+                                 lanes=[slowest])
+    iters1 = int(one.n_steps.max())
+    print(f"{SWEEP_GRID} slowest lane ({slowest}) alone (L = 1): wall "
+          f"{wall:.3f} s, {iters1} loop iterations, host syncs "
+          f"{one.host_syncs} ({one.host_syncs / iters1:.2f} a loop "
+          f"iteration)", flush=True)
+    iters, syncs = per_iter[SWEEP_GRID]
+    sync_gap = syncs / iters - one.host_syncs / iters1
+    print(f"{SWEEP_GRID}: host syncs a loop iteration {syncs / iters:.3f} "
+          f"at L = 144 against {one.host_syncs / iters1:.3f} for its "
+          f"slowest lane alone (+{sync_gap:.3f})", flush=True)
+    if sync_gap > 2.0:
+        failures.append(f"{SWEEP_GRID}: host syncs a loop iteration "
+                        f"+{sync_gap}")
+    return launches, (cells, slowest)
+
+
+def sweep_windows(dev, cells, slowest, failures):
+    """The profile phase's sweep windows: the first SWEEP_WINDOW
+    supersteps of every lane of each sweep cell and of the Figs 21-24
+    grid's slowest lane alone; fails if the grid's kernel launches a loop
+    iteration exceed twice its slowest lane's."""
+    found = {}
+    for name in SWEEP_CELLS + ("slowest",):
+        phase(f"where the time goes: the first {SWEEP_WINDOW} supersteps "
+              f"of each lane of " + (name if name != "slowest" else
+                                     f"{SWEEP_GRID}'s slowest lane alone"))
+        c, g, fleet = cells[SWEEP_GRID if name == "slowest" else name]
+        found[name] = sweep_window(
+            c, g, fleet, dev, lanes=[slowest] if name == "slowest" else None)
+    (n_l, it_l), (n_1, it_1) = found[SWEEP_GRID], found["slowest"]
+    ratio = (n_l / it_l) / (n_1 / it_1)
+    print(f"{SWEEP_GRID}: kernel launches a loop iteration {n_l / it_l:.1f} "
+          f"at L = 144 against {n_1 / it_1:.1f} for its slowest lane alone "
+          f"(x{ratio:.3f})", flush=True)
+    if ratio > 2.0:
+        failures.append(f"{SWEEP_GRID}: launches a loop iteration x{ratio}")
+
+
 def check_rand(dev):
     """``rand.exponential``'s ``-log1p(-u)`` over every f32 uniform on the
     card against the SHA-256 of jitted JAX's, and the recorded draws of
@@ -1039,6 +1373,25 @@ def compare(dev):
     return 0
 
 
+def sweep_only(dev):
+    """``--sweep``: the card line, the build, the lane kernels' checks,
+    the sweep phase and its windows; exits 1 on a failure."""
+    phase("card")
+    print(card_line(), flush=True)
+    phase("build")
+    from repro_torch.kernels import event_scan as ek
+    ek._lib()
+    failures = []
+    phase("lane kernels against their plain versions (bitwise)")
+    lane_kernel_checks(dev, torch.Generator().manual_seed(24), failures)
+    phase("sweep")
+    _, ctx = sweep_phase(dev, failures)
+    sweep_windows(dev, *ctx, failures)
+    print("FAILED: " + "; ".join(failures) if failures else "sweep ok",
+          flush=True)
+    return 1 if failures else 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1048,6 +1401,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:] == ["--compare"]:
         return compare(dev)
+    if sys.argv[1:] == ["--sweep"]:
+        return sweep_only(dev)
     failures = []
 
     phase("card")
@@ -1151,6 +1506,10 @@ def main():
             if not same:
                 failures.append(f"event_frontier {name}")
 
+    lane_errs, lane_in = lane_kernel_checks(
+        dev, torch.Generator().manual_seed(24), failures)
+    errs.update(lane_errs)
+
     names = ("rate", "t_min", "argmin", "occ")
     for l, t in LINK_SHAPES:
         rem, tie, baud, bg, cap = link_inputs(l, t, gen, dev)
@@ -1243,6 +1602,11 @@ def main():
         if max(plain.values()) > 0:
             failures.append(f"{name}: a plain version ran on the card")
 
+    phase("sweep: simulation.sweep and engine.run_sweep_lanes on the card "
+          "vs the JAX reference")
+    sweep_launches, sweep_ctx = sweep_phase(dev, failures)
+    launches.update(sweep_launches)
+
     phase("rand: the threefry and XLA:CPU's log1p on the card")
     failures += check_rand(dev)
 
@@ -1297,6 +1661,19 @@ def main():
     occupied = int((cargs[0] >= 0).sum())
     checked_bytes = ((2 * r * j + occupied + 5 * r + 1) * f4 + 1 +
                      (2 * r * j + 3 * r + 1) * f4)
+    # the lane forms at the Figs 21-24 grid's shapes, as the sweep engine
+    # calls them (into a scratch): per lane the checked form's bytes
+    # (less the counter, plus the lane's use flag) and operations; the
+    # frontier's candidates read and its outputs written, per lane
+    largs, lrank, lflag, lcand, lsizes = lane_in
+    n_lanes, lr, lj = largs[0].shape
+    l_occ = int((largs[0] >= 0).sum())
+    lane_bytes = ((2 * n_lanes * lr * lj + l_occ + 5 * n_lanes * lr) * f4 +
+                  n_lanes + (2 * n_lanes * lr * lj + 3 * n_lanes * lr) * f4 +
+                  n_lanes)
+    lfront_bytes = (lcand.numel() + len(lsizes) + 1) * f4 + n_lanes * (
+        2 * f4 + len(lsizes) * (1 + 2 * f4))
+    lscratch = ek.Scratch()
     rows = []
     for name, form, fn, plain_fn, nbytes, n_ops in (
             ("event_scan", "fresh",
@@ -1317,6 +1694,16 @@ def main():
              lambda: ek.event_frontier_ref(cand, sizes),
              (sum(sizes) + len(sizes) + 1) * f4 + 2 * f4 +
              len(sizes) * (1 + 2 * f4), 3 * sum(sizes)),
+            ("event_scan_lanes", "checked",
+             lambda: ek.event_scan_checked_lanes_cuda(
+                 *largs, lrank, lflag, scratch=lscratch),
+             lambda: ek.event_scan_checked_lanes_ref(*largs, lrank, lflag),
+             lane_bytes, 18 * n_lanes * lr * lj),
+            ("event_frontier_lanes", "engine layout",
+             lambda: ek.event_frontier_lanes_cuda(lcand, lsizes,
+                                                  scratch=lscratch),
+             lambda: ek.event_frontier_lanes_ref(lcand, lsizes),
+             lfront_bytes, 3 * lcand.numel()),
             ("link_scan", "trunk cap",
              lambda: ek.link_scan_cuda(lrem, lbaud, bg=lbg, tie=ltie,
                                        cap=lcap),
@@ -1353,7 +1740,10 @@ def main():
         bound_ms = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         shape = {"link_scan": f"[{r},{lt}]",
-                 "event_frontier": f"[{sum(sizes)}]"}.get(name, f"[{r},{j}]")
+                 "event_frontier": f"[{sum(sizes)}]",
+                 "event_scan_lanes": f"[{n_lanes},{lr},{lj}]",
+                 "event_frontier_lanes": f"[{n_lanes},{sum(lsizes)}]"}.get(
+                     name, f"[{r},{j}]")
         print(f"{name} {form} {shape}: kernel {ms} ms device "
               f"({call_ms:.5f} ms per call), plain {plain_ms:.5f} ms per "
               f"call ({plain_dev} ms device), bound {bound_ms:.7f} ms "
@@ -1470,6 +1860,7 @@ def main():
     ek.reset_counts()
 
     windows(cells, dev)
+    sweep_windows(dev, *sweep_ctx, failures)
 
     kernels = []
     for name in REPLACES:

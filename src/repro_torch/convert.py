@@ -53,7 +53,11 @@ def fleet(src, device="cpu") -> Fleet:
 def params(src, device="cpu") -> engine.SimParams:
     """``SimParams`` from the reference's params fields: the link rates,
     trunk vectors, failure and auction keys, fault-trace rows,
-    reservation windows and pricing knobs included."""
+    reservation windows and pricing knobs included.  Lane-stacked
+    params (every leaf with a leading [L], as ``jax.vmap(_scenario_point)``
+    or ``examples/table1_strategies.lane_params`` make them) give the
+    port's lane params, which ``engine.run_sweep_lanes`` takes as they
+    are: both packages then run the same lanes."""
     return _build(engine.SimParams, src, device)
 
 

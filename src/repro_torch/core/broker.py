@@ -123,7 +123,8 @@ def _measure(state, fleet, params, n_users: int):
     adv_rate = eff * torch.clamp_min(adv_pe, 0).to(torch.float32)
     cost_per_mi = state.price                                    # [R]
 
-    cnt_per_user = torch.bincount(u_idx, minlength=n_users)[:n_users]
+    cnt_per_user = segment_count(torch.ones_like(u_idx, dtype=torch.bool),
+                                 u_idx, n_users)
     mi_per_user = numerics.segment_sum(g.length_mi, u_idx, n_users, width)
     avg_mi = mi_per_user / torch.clamp_min(
         cnt_per_user.to(torch.float32), 1.0)                     # [U]
@@ -260,7 +261,7 @@ def _assign(state, ctx, assigned, n_committed, params, n_users: int,
                         r_f, plan_ahead=state.host.plan)
     keys = torch.where(registered[None, :], keys, INF)
     order = torch.sort(keys, dim=-1, stable=True).indices        # [U,R]
-    inv_order = torch.empty_like(order).scatter_(
+    inv_order = torch.zeros_like(order).scatter(
         1, order, torch.arange(R, device=dev).expand(n_users, R))
 
     slots = torch.clamp_min(ctx["cap_jobs"] - n_committed, 0)    # [U,R]
@@ -274,7 +275,7 @@ def _assign(state, ctx, assigned, n_committed, params, n_users: int,
     # pass, every user at once.
     taken = torch.zeros(n_users, dtype=torch.int32, device=dev)
     budget_rem = budget_left
-    take_at = torch.zeros((n_users, R), dtype=torch.int32, device=dev)
+    take_at = []
     for j in range(R):
         r = order[:, j:j + 1]                                    # [U,1]
         s = slots.gather(1, r)[:, 0]
@@ -284,10 +285,10 @@ def _assign(state, ctx, assigned, n_committed, params, n_users: int,
         n_fit = torch.minimum(torch.minimum(s, by_budget),
                               n_unassigned - taken)
         n_fit = torch.where(active & registered[r[:, 0]], n_fit, 0)
-        take_at[:, j] = n_fit
+        take_at.append(n_fit)
         taken = taken + n_fit
         budget_rem = numerics.fma(-n_fit.to(torch.float32), c, budget_rem)
-    cum_take = torch.cumsum(take_at, dim=-1)                     # [U,R]
+    cum_take = torch.cumsum(torch.stack(take_at, dim=-1), dim=-1)  # [U,R]
 
     k, _ = group_rank(u_idx, unassigned, idx, n_users)
     cum_for_g = cum_take[u_idx]                                  # [N,R]

@@ -52,12 +52,19 @@ its start (``HostCounts.strikes`` / ``trace`` / ``market`` /
 ``auction``, and the window table's length), as the reference's
 ``fault_time is None`` gate is static, so such a run is today's program
 op for op.
+
+The sweep engine (:func:`run_sweep_lanes`) runs many scenarios as lanes
+of one loop: every leaf carries a lane axis, the kernels' lane forms
+serve every lane in one launch, the tensor code runs under
+``torch.func.vmap`` and finished lanes are frozen; each lane is bit for
+bit its own :func:`run`.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils._pytree as pytree
 
 from . import broker as broker_mod
 from . import calendar, des, network, numerics, rand
@@ -65,6 +72,7 @@ from . import economy as econ_mod
 from . import reservation as resv_mod
 from ..kernels import event_scan as _event_kernels
 from ..kernels.event_scan import BIG as _BIG
+from .gridlet import GridletBatch
 from .segments import group_rank, segment_count
 from .types import (DONE, FAILED, IN_TRANSIT, INF, QUEUED, RETURNING, RUNNING,
                     SJF, SPACE_SHARED, TIME_SHARED, replace, resolve_device,
@@ -228,7 +236,9 @@ class HostCounts:
     loop made, and, on the device, ``n_reseeds`` (i32[], the scans that
     re-sorted: the checked scan adds to it without a read), the
     ``scratch`` its kernels write their outputs to and the link scan's
-    padded per-row inputs, ``link_rows`` (built on its first call).
+    padded per-row inputs, ``link_rows`` (built on its first call; the
+    sweep engine's scan keeps its lane-constant row inputs in
+    ``lane_rows``, made at the start of its run).
 
     The run's static gates, fixed at its start (the reference's static
     ``fault_time is None`` gate, widened to the failure streams and the
@@ -248,6 +258,7 @@ class HostCounts:
     scratch: _event_kernels.Scratch = dataclasses.field(
         default_factory=_event_kernels.Scratch)
     link_rows: _event_kernels.LinkRows | None = None
+    lane_rows: tuple | None = None
     strikes: bool = False
     trace: bool = False
     market: bool = False
@@ -670,11 +681,15 @@ def _admit_queued(state, fleet, free_pe, t_next, n_resources, qrank):
     return replace(state, g=g), admitq
 
 
-def _apply_returns(state, fleet, t_next, n_users, n_resources):
+def _apply_returns(state, fleet, t_next, n_users, n_resources, gate=None):
     """RETURNING & due -> DONE for the whole batch; the broker's
-    per-resource completion counts (paper 4.2.1 step 6)."""
+    per-resource completion counts (paper 4.2.1 step 6).  ``gate`` (a
+    device bool: the sweep engine's masked micro-steps) empties the due
+    mask when False."""
     g = state.g
     ret_due = (g.status == RETURNING) & (g.t_event <= t_next)
+    if gate is not None:
+        ret_due = ret_due & gate
     g = replace(g,
                 status=torch.where(ret_due, DONE, g.status),
                 returned=torch.where(ret_due, t_next, g.returned))
@@ -1772,17 +1787,473 @@ def run_direct(gridlets, fleet, resource_idx, dispatch_time,
     return _run(g, fleet, params, 1, max_events, None, batch, net_cap)
 
 
-def run_inner(*args, **kwargs):
-    """The unjitted inner loop the reference runs under its sweeps is
-    not ported yet."""
-    raise NotImplementedError("run_inner is not ported yet")
+def run_inner(gridlets, fleet, params: SimParams, n_users: int,
+              max_events: int, max_jobs: int | None = None,
+              batch: int = 1, net_cap: int = 0,
+              telemetry: int | None = None, device="cuda") -> SimResult:
+    """The per-scenario loop the reference runs under its sweeps'
+    ``vmap``: :func:`run` at ``batch=1`` by default (the port's loop
+    is already unjitted, so this is :func:`run` itself)."""
+    return run(gridlets, fleet, params, n_users, max_events, max_jobs,
+               batch=batch, net_cap=net_cap, telemetry=telemetry,
+               device=device)
 
 
-def run_sweep(*args, **kwargs):
-    """The select-free sweep engine is not ported yet."""
-    raise NotImplementedError("run_sweep is not ported yet")
+# ----------------------------------------------------------------------
+# The lane-batched sweep engine: the scenario axis inside the loop
+# ----------------------------------------------------------------------
+#
+# Every tensor leaf of the lane state -- the SimState, the slab carry,
+# the per-user finished flags and the "how" counters -- carries a
+# leading lane axis L, as in the reference's ``run_sweep_lanes``.  Each
+# superstep piece runs once over all lanes: the scan and the frontier
+# are the kernels' lane forms (one launch serves every lane), the
+# per-lane tensor code runs under ``torch.func.vmap`` (each op batched
+# by its own rule; the shared helpers are written out of place so that
+# no op falls back to a loop over lanes), and a lane whose run ended is
+# frozen by a ``torch.where`` over every leaf (:func:`_tree_where`).
+# Where the reference branches on an any-lane predicate the host reads
+# it once; where its select-free path proves both branches agree the
+# piece runs unconditionally.  Ported for the default scenario sources
+# (static pricing, analytic links, no failure streams, trace or
+# windows): lanes may differ in deadline, budget, policy and every knob
+# that only changes parameter values.
+
+def _dataclass_pytree(cls, static=()):
+    """Register a frozen dataclass with ``torch.utils._pytree``: its
+    tensor fields are the children; ``static`` fields and fields that are
+    None ride in the context."""
+    names = tuple(f.name for f in dataclasses.fields(cls))
+
+    def flatten(obj):
+        kids = tuple(n for n in names if n not in static and
+                     getattr(obj, n) is not None)
+        return ([getattr(obj, n) for n in kids],
+                (kids, {n: getattr(obj, n) for n in names if n not in kids}))
+
+    def unflatten(children, context):
+        kids, rest = context
+        return cls(**dict(zip(kids, children)), **rest)
+
+    pytree.register_pytree_node(cls, flatten, unflatten)
 
 
-def run_sweep_lanes(*args, **kwargs):
-    """The lane-batched sweep engine is not ported yet."""
-    raise NotImplementedError("run_sweep_lanes is not ported yet")
+_dataclass_pytree(SimState, static=("host", "width"))
+_dataclass_pytree(SimResult, static=("host_syncs",))
+_dataclass_pytree(GridletBatch)
+_dataclass_pytree(SimParams)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the aligned tensor leaves of pytrees of one layout
+    (contexts are not compared: a SimState's holds its HostCounts)."""
+    leaves, spec = pytree.tree_flatten(trees[0])
+    rest = [pytree.tree_flatten(t)[0] for t in trees[1:]]
+    return pytree.tree_unflatten([fn(*xs) for xs in zip(leaves, *rest)],
+                                 spec)
+
+
+def _stack(trees):
+    """Stack pytrees of one layout along a new leading lane axis."""
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _lane(tree, i):
+    """Lane ``i`` of a lane-batched pytree."""
+    return _tree_map(lambda x: x[i], tree)
+
+
+def _tree_where(pred, new, old):
+    """Per-lane select over whole pytrees: ``pred`` is bool[L] and every
+    leaf carries a leading lane axis (the reference's ``_tree_where``); a
+    leaf that is the same tensor in both is kept as it is."""
+    return _tree_map(lambda a, b: a if a is b else torch.where(
+        pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b), new, old)
+
+
+def _vmap(fn, *args):
+    """``fn`` over the lane axis of every argument, by vmap's batching
+    rules (never a loop over lanes)."""
+    return torch.func.vmap(fn)(*args)
+
+
+def _check_lane_settings(params, net_cap, telemetry):
+    """The sweep engine runs the default scenario sources only; every
+    other lane setting raises until it is ported."""
+    if telemetry:
+        raise NotImplementedError("telemetry is not ported yet")
+    if net_cap:
+        raise NotImplementedError("the sweep engine's contended network "
+                                  "(net_cap != 0) is not ported yet")
+    if bool((params.mtbf > 0).any()):
+        raise NotImplementedError("the sweep engine's failure streams are "
+                                  "not ported yet")
+    if params.fault_time is not None:
+        raise NotImplementedError("the sweep engine's fault trace is not "
+                                  "ported yet")
+    if params.resv_res.shape[-1] > 0:
+        raise NotImplementedError("the sweep engine's reservation windows "
+                                  "are not ported yet")
+    if bool((params.pricing_model != econ_mod.PRICE_STATIC).any()):
+        raise NotImplementedError("the sweep engine's dynamic pricing is "
+                                  "not ported yet")
+    if bool(params.plan_ahead.any()):
+        raise NotImplementedError("the sweep engine's plan-ahead broker is "
+                                  "not ported yet")
+
+
+def _scan_lanes(state, fleet, slab, reseed):
+    """The checked scan over every lane at once (the kernel's lane form
+    on the card, its plain version on the CPU).  ``reseed``: a lane
+    whose carry went stale takes a fresh rank (the committing
+    superstep); else every lane scans with its carried rank (the
+    micro-steps, which decline instead).  Returns (rate [L, R_pad, J],
+    t_min, argmin, occupancy [L, R_pad], rank [L, R_pad, J]) and use
+    bool[L], whether each lane's carry held."""
+    pad = state.row_gridlet.shape[1] - fleet.r
+    npe, pol, blocked = state.host.lane_rows
+    eff, row_ok = _vmap(lambda s: (
+        _pad(calendar.effective_mips(fleet, s.t), pad, 1.0),
+        _pad(s.res_up, pad, True).to(torch.float32)), state)
+    # the kernel reads each lane's rows at lane * (row count): a leaf may
+    # come out of vmap as a view with a wider lane stride
+    args = (state.row_gridlet.contiguous(), state.g.remaining.contiguous(),
+            eff.contiguous(), npe, pol, blocked, row_ok.contiguous(),
+            slab[0].contiguous(), slab[1].contiguous())
+    if state.t.device.type == "cuda":
+        return _event_kernels.event_scan_checked_lanes_cuda(
+            *args, reseed=reseed, scratch=state.host.scratch)
+    return _event_kernels.event_scan_checked_lanes_ref(*args, reseed=reseed)
+
+
+def _frontier_lanes(state, params, fleet, n_users, tmin=None):
+    """The event frontier of every lane in one launch: over the sources'
+    candidates (``tmin``, the scan's forecasts, given) or, without
+    ``tmin``, over their horizon candidates (the speculation horizon)."""
+    sizes = []
+
+    def cands(s, p, tm):
+        ctx = {} if tm is None else {"scan": (None, tm)}
+        sources = _make_sources(fleet, p, n_users, ctx)
+        out = [src.horizon_candidates(s) if tm is None else
+               src.candidates(s) for src in sources]
+        sizes[:] = [c.shape[0] for c in out]
+        return torch.cat(out)
+
+    if tmin is None:
+        cand = _vmap(lambda s, p: cands(s, p, None), state, params)
+    else:
+        cand = _vmap(cands, state, params, tmin)
+    cand = cand.contiguous()
+    if cand.device.type == "cuda":
+        return _event_kernels.event_frontier_lanes_cuda(
+            cand, tuple(sizes), scratch=state.host.scratch)
+    return _event_kernels.event_frontier_lanes_ref(cand, tuple(sizes))
+
+
+def _complete_masked(state, fleet, params, ctx, now, sort_free):
+    """COMPLETION's apply in the reference's select-free form (one lane,
+    under vmap): the batch in ``ctx["completes"]`` leaves its slots, and
+    freed space-shared PEs admit queued work with the free-PE budget
+    masked to zero when no admission is due, ranked by the carried queue
+    rank (``sort_free``: the micro-steps, whose gate guarantees it holds)
+    or where it went stale a fresh one."""
+    n_resources = fleet.r
+    r_pad = state.row_gridlet.shape[0]
+    completes, res = ctx["completes"], ctx["res"]
+    state = _apply_completions(state, fleet, params, completes, now,
+                               n_resources, r_pad)
+    n_comp_r = segment_count(completes, res, n_resources)
+    avail = fleet.num_pe - _reserved_pes(params, now, n_resources)
+    free_pe = torch.clamp_min(avail - (ctx["scan"][3][:n_resources] -
+                                       n_comp_r), 0)
+    free_pe = torch.where((fleet.policy == SPACE_SHARED) & state.res_up,
+                          free_pe, 0)
+    ss_freed = completes & (fleet.policy[res] == SPACE_SHARED)
+    pred = ss_freed.any() & (state.g.status == QUEUED).any()
+    qr0, qok = ctx["qcarry"]
+    qr = qr0 if sort_free else torch.where(
+        qok, qr0, _queue_rank(state, fleet, n_resources))
+    state, admitq = _admit_queued(state, fleet,
+                                  torch.where(pred, free_pe, 0), now,
+                                  n_resources, qr)
+    n_admit_r = segment_count(admitq, res, n_resources)
+    ctx["n_comp_r"] = n_comp_r
+    ctx["qcarry"] = (qr - n_admit_r[res], qok | pred)
+    ctx["free_pe"] = free_pe - n_admit_r
+    ctx["newly"] = admitq
+    ctx[("count", des.K_COMPLETION)] = completes.sum().to(torch.int32)
+    return state
+
+
+def _continue_lanes(fin, cnt, max_events):
+    """:func:`_continue` per lane, on the device: bool[L]."""
+    return ~fin.all(dim=1) & (cnt[0] + cnt[1] < max_events)
+
+
+def _commit_lanes(state, fleet, params, n_users, slab, cnt, alive):
+    """The committing superstep over every lane (the reference's
+    ``_commit_lanes`` for the default sources).  Every lane runs the
+    scan (a fresh rank only where its carry went stale), the frontier,
+    the advance, COMPLETION and RETURN; BROKER runs over every lane when
+    some live lane's poll fired, and a per-lane select keeps it only
+    where it did (the reference's select-free ``broker_apply``); ARRIVAL
+    runs when the broker ran or some live lane has an arrival due before
+    it (``arr_pre``, taken before the broker: the ARRIVAL > BROKER
+    tie-break), and otherwise is the identity.  Both predicates come
+    back in one read.  Returns (state, slab, finished, counters)."""
+    n_resources = fleet.r
+    r_pad = state.row_gridlet.shape[1]
+    host = state.host
+    pos = {k: i for i, k in enumerate(des.PRIORITY_ORDER)}
+    scan, use = _scan_lanes(state, fleet, slab, reseed=True)
+    n_steps, n_spec, n_scans, n_reseeds = cnt
+    cnt = (n_steps + 1, n_spec, n_scans + 1,
+           n_reseeds + (~use).to(torch.int32))
+    t_star, fired = _frontier_lanes(state, params, fleet, n_users,
+                                    scan[1])[:2]
+
+    def head(state, params, scan, slab, t_star):
+        ctx = {"scan": scan, "qcarry": (slab[2], slab[3])}
+        any_event = torch.isfinite(t_star)
+        t_next = torch.where(any_event, t_star, state.t)
+        state = _advance_jobs(state, ctx, t_next, any_event, n_resources)
+        state = _complete_masked(state, fleet, params, ctx, t_next,
+                                 sort_free=False)
+        state, ret_due = _apply_returns(state, fleet, t_next, n_users,
+                                        n_resources)
+        g = state.g
+        arr_pre = (g.status == IN_TRANSIT) & (g.t_event <= t_next)
+        pack = {k: ctx[k] for k in ("qcarry", "free_pe", "newly",
+                                    "n_comp_r")}
+        pack["count"] = {des.K_COMPLETION: ctx[("count", des.K_COMPLETION)],
+                         des.K_RETURN: ret_due.sum().to(torch.int32)}
+        pack["who"] = {des.K_COMPLETION: ctx[("who", des.K_COMPLETION)],
+                       des.K_RETURN: torch.argmax(
+                           ret_due.to(torch.int32)).to(torch.int32)}
+        return state, t_next, arr_pre, pack
+
+    state, t_next, arr_pre, pack = _vmap(head, state, params, scan, slab,
+                                         t_star)
+    fired_b = fired[:, pos[des.K_BROKER]]
+    broker_due, arrival_due = host.read_flags(torch.stack([
+        (fired_b & alive).any(), (arr_pre & alive[:, None]).any()]))
+    if broker_due:
+        polled = _vmap(lambda s, p: broker_mod.broker_event(
+            s, fleet, p, n_users), state, params)
+        state = _tree_where(fired_b, polled, state)
+    if broker_due or arrival_due:
+        def arrive(state, params, t_next, arr_pre, pack):
+            state, arr_due, arr_run, arr_queue = _apply_arrivals(
+                state, fleet, params, pack["free_pe"], arr_pre, t_next,
+                n_users, n_resources)
+            qr, qok = pack["qcarry"]
+            return state, dict(
+                pack, newly=pack["newly"] | arr_run,
+                qcarry=(qr, qok & ~arr_queue.any()),
+                count={**pack["count"],
+                       des.K_ARRIVAL: arr_due.sum().to(torch.int32)},
+                who={**pack["who"], des.K_ARRIVAL: torch.argmax(
+                    arr_due.to(torch.int32)).to(torch.int32)})
+
+        state, pack = _vmap(arrive, state, params, t_next, arr_pre, pack)
+
+    def tail(state, params, scan, t_next, fired, pack):
+        ctx = dict(pack, scan=scan)
+        state = _alloc_newly(state, ctx, n_resources, r_pad)
+        counts = torch.stack([
+            pack["count"].get(k, fired[i].to(torch.int32))
+            for i, k in enumerate(des.PRIORITY_ORDER)])
+        no_who = torch.full_like(t_next, -1, dtype=torch.int32)
+        whos = torch.stack([pack["who"].get(k, no_who)
+                            for k in des.PRIORITY_ORDER])
+        kinds = torch.tensor(des.PRIORITY_ORDER, dtype=torch.int32,
+                             device=t_next.device)
+        state, finished = _bookkeep(state, fleet, params, n_users, kinds,
+                                    counts, whos, t_next)
+        return state, _slab_after(state, ctx, scan, False, fleet,
+                                  n_resources, r_pad), finished
+
+    state, slab, fin = _vmap(tail, state, params, scan, t_next, fired,
+                             pack)
+    return state, slab, fin, cnt
+
+
+def _micro_lanes(state, fleet, params, n_users, t_safe, slab, fin, cnt,
+                 alive):
+    """One masked speculative micro-step over every lane (the
+    reference's ``_sweep_micro``): the scan always injects the carried
+    rank, and a lane fires only if its next batch lies strictly inside
+    its horizon, its carry held, any space-shared admission can ride
+    the carried queue rank, and it is still ``alive``; a lane that
+    declines is a bitwise no-op.  Returns (state, fire bool[L], slab,
+    finished, counters)."""
+    n_resources = fleet.r
+    r_pad = state.row_gridlet.shape[1]
+    scan, use = _scan_lanes(state, fleet, slab, reseed=False)
+
+    def one(state, params, scan, use, t_safe, slab, fin, alive):
+        ctx = {"scan": scan, "qcarry": (slab[2], slab[3])}
+        g = state.g
+        tmin = scan[1].min()
+        t_comp = torch.where(tmin < _BIG, state.t + tmin, INF)
+        ret_due_at = torch.where(g.status == RETURNING, g.t_event, INF)
+        t_next = torch.minimum(t_comp, ret_due_at.min())
+        # would this batch need a space-shared admission? (the scan's
+        # outputs are meaningless where the carry failed, but then
+        # ``use`` already closes the gate)
+        res = torch.clamp(g.resource.to(torch.int64), 0, n_resources - 1)
+        j_cap = state.row_gridlet.shape[1]
+        has_slot = (g.status == RUNNING) & (state.slot >= 0)
+        rate = torch.where(has_slot, scan[0][res, torch.clamp(
+            state.slot.to(torch.int64), 0, j_cap - 1)], 0.0)
+        rel = torch.where(has_slot,
+                          g.remaining / torch.clamp_min(rate, 1e-30), INF)
+        would_c = has_slot & (state.t + rel <= t_next)
+        pred_admit = ((would_c & (fleet.policy[res] == SPACE_SHARED)).any()
+                      & (g.status == QUEUED).any())
+        fire = (torch.isfinite(t_next) & (t_next < t_safe) & use & alive &
+                (slab[3] | ~pred_admit) & ~fin.all())
+        t_eff = torch.where(fire, t_next, state.t)
+        state = _advance_jobs(state, ctx, t_eff, fire, n_resources)
+        state = _complete_masked(state, fleet, params, ctx, t_eff,
+                                 sort_free=True)
+        state, ret_due = _apply_returns(state, fleet, t_eff, n_users,
+                                        n_resources, gate=fire)
+        state = _alloc_newly(state, ctx, n_resources, r_pad)
+        kinds = torch.tensor([des.K_COMPLETION, des.K_RETURN],
+                             dtype=torch.int32, device=t_eff.device)
+        counts = torch.stack([ctx[("count", des.K_COMPLETION)],
+                              ret_due.sum().to(torch.int32)])
+        whos = torch.stack([ctx[("who", des.K_COMPLETION)].to(torch.int32),
+                            torch.argmax(ret_due.to(torch.int32)).to(
+                                torch.int32)])
+        state, fin = _bookkeep(state, fleet, params, n_users, kinds, counts,
+                               whos, t_eff)
+        n_comp_r = _pad(ctx["n_comp_r"], r_pad - n_resources, 0)
+        slab = (scan[4] - n_comp_r[:, None].to(torch.float32), slab[1],
+                *ctx["qcarry"])
+        return state, fire, slab, fin
+
+    state, fire, slab, fin = _vmap(one, state, params, scan, use, t_safe,
+                                   slab, fin, alive)
+    n_steps, n_spec, n_scans, n_reseeds = cnt
+    return state, fire, slab, fin, (n_steps, n_spec + fire.to(torch.int32),
+                                    n_scans + alive.to(torch.int32),
+                                    n_reseeds)
+
+
+def _step_sweep_lanes(state, fleet, params, n_users, batch, slab, fin, cnt,
+                      alive, max_events):
+    """One lane-batched loop iteration: the committing superstep, then
+    up to ``batch - 1`` masked micro-steps, which stop once every lane
+    declined (a declined micro-step is a bitwise no-op, counters
+    included, so running one past the last that fired changes no
+    result).  ``alive`` seeds the micro-steps' gates, so a frozen lane
+    never keeps the loop going.  The host reads, in one sync, whether
+    any lane fired and whether any lane goes on to the next iteration
+    after micro-steps 1, 3, 7, ... and the last: at most
+    ceil(log2(batch)) reads an iteration, however many lanes keep
+    firing.  Returns (state, slab, finished, counters, the lanes that
+    go on bool[L], whether any does)."""
+    host = state.host
+    state, slab, fin, cnt = _commit_lanes(state, fleet, params, n_users,
+                                          slab, cnt, alive)
+    if batch <= 1:
+        going = alive & _continue_lanes(fin, cnt, max_events)
+        return state, slab, fin, cnt, going, host.read(going.any())
+    t_safe = _frontier_lanes(state, params, fleet, n_users)[3]
+    fire = alive
+    for k in range(1, batch):
+        state, fire, slab, fin, cnt = _micro_lanes(
+            state, fleet, params, n_users, t_safe, slab, fin, cnt, fire)
+        if k & (k + 1) and k < batch - 1:     # not 1, 3, 7, ... nor last
+            continue
+        going = alive & _continue_lanes(fin, cnt, max_events)
+        more, any_going = host.read_flags(torch.stack([fire.any(),
+                                                       going.any()]))
+        if not more:
+            break
+    return state, slab, fin, cnt, going, any_going
+
+
+def _finalize_lanes(state, cnt) -> SimResult:
+    """:func:`_finalize` over the lane axis, with the per-lane counters."""
+    t = state.t[:, None]
+    term = torch.where(torch.isfinite(state.term_time), state.term_time, t)
+    downtime = state.downtime + torch.where(state.res_up, 0.0,
+                                            t - state.fail_since)
+    return SimResult(gridlets=state.g, spent=state.spent, term_time=term,
+                     n_events=state.n_events,
+                     trace=(state.trace_t, state.trace_kind,
+                            state.trace_who),
+                     n_steps=cnt[0], overflow=state.overflow,
+                     n_failed=state.n_failed,
+                     n_resubmits=state.n_resubmits, downtime=downtime,
+                     n_spec=cnt[1], n_reseeds=cnt[3], n_scans=cnt[2],
+                     host_syncs=state.host.syncs)
+
+
+def run_sweep_lanes(gridlets, fleet, params: SimParams, n_users: int,
+                    max_events: int, max_jobs: int | None = None,
+                    batch: int = DEFAULT_BATCH, net_cap: int = 0,
+                    telemetry: int | None = None,
+                    device="cuda") -> SimResult:
+    """The lane-batched sweep engine: one scenario per lane of
+    ``params`` (every leaf carries a leading lane axis L, e.g.
+    ``simulation._lane_points`` or ``convert.params`` of the reference's
+    lane-stacked params), with the lane axis inside the loop.  Each
+    superstep piece serves every lane in one pass; lanes that finished
+    are frozen.  Every lane is bit for bit its own :func:`run`, and the
+    "how" counters (``n_steps``/``n_spec``/``n_scans``/``n_reseeds``,
+    now [L]) are the reference's ``run_sweep_lanes``'.  The result's
+    leaves carry the lane axis; ``host_syncs`` counts the whole run's
+    reads.  Raises ``NotImplementedError`` for a lane setting not ported
+    yet (failure streams, a fault trace, reservation windows, dynamic
+    pricing, plan-ahead, ``net_cap != 0``, telemetry)."""
+    dev = resolve_device(device)
+    _check_lane_settings(params, net_cap, telemetry)
+    gridlets, fleet = to_device(gridlets, dev), to_device(fleet, dev)
+    params = to_device(params, dev)
+    n_lanes = params.deadline.shape[0]
+    states = [init_state(gridlets, fleet, n_users, max_jobs=max_jobs,
+                         params=_lane(params, i)) for i in range(n_lanes)]
+    state = _stack(states)
+    host = state.host
+    # the scan's row inputs that are the same in every lane: PEs, policy,
+    # and no PE reserved (the sweep engine runs no window)
+    r_pad = state.row_gridlet.shape[1]
+    host.lane_rows = tuple(
+        x.to(torch.float32).expand(n_lanes, r_pad).contiguous()
+        for x in (_pad(fleet.num_pe, r_pad - fleet.r, 1),
+                  _pad(fleet.policy, r_pad - fleet.r, 0),
+                  fleet.num_pe.new_zeros((r_pad,))))
+    slab = _stack([_empty_slab(s) for s in states])
+    fin = _vmap(lambda s, p: _user_flags(s, p, fleet, n_users)[1], state,
+                params)
+    zero = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    cnt = (zero, zero, zero, zero)
+    alive = _continue_lanes(fin, cnt, max_events)
+    going = host.read(alive.any())
+    while going:
+        out = _step_sweep_lanes(state, fleet, params, n_users, batch, slab,
+                                fin, cnt, alive, max_events)
+        state, slab, fin, cnt = _tree_where(alive, out[:4],
+                                            (state, slab, fin, cnt))
+        alive, going = out[4:]
+    return _finalize_lanes(state, cnt)
+
+
+def run_sweep(gridlets, fleet, params: SimParams, n_users: int,
+              max_events: int, max_jobs: int | None = None,
+              batch: int = DEFAULT_BATCH, net_cap: int = 0,
+              telemetry: int | None = None, device="cuda") -> SimResult:
+    """The select-free sweep engine over one scenario:
+    :func:`run_sweep_lanes` with a single lane (``params`` without a lane
+    axis; the result has none either).  Bit for bit :func:`run`; the
+    "how" counters are the reference's ``run_sweep``'s."""
+    res = run_sweep_lanes(gridlets, fleet, _stack([params]), n_users,
+                          max_events, max_jobs, batch=batch,
+                          net_cap=net_cap, telemetry=telemetry,
+                          device=device)
+    return dataclasses.replace(_lane(res, 0), host_syncs=res.host_syncs)

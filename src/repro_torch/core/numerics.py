@@ -25,6 +25,12 @@ times and spend is bitwise:
   summed in order, then reduces the window sums the same way
   (:func:`ordered_sum`).
 
+Every function here is written out of place (no write into a fresh
+tensor, no ``bincount``, ``scatter_add`` where ``index_add``'s batching
+rule would loop), so ``torch.func.vmap`` batches each op over the sweep
+engine's scenario lanes in one call, one lane's adds never meeting
+another's.
+
 * **Transcendentals.**  XLA:CPU expands ``log1p`` into f32 arithmetic
   of its own (:func:`log1p`, with the fused multiply-adds its machine
   code has), and its ``exp2`` misses ``2**k`` by a few ulp for some
@@ -172,8 +178,7 @@ def cumsum_rows(x):
     if n <= _TILE:
         return _seq_scan_cols(x)
     nt = -(-n // _TILE)
-    xp = torch.zeros((r, nt * _TILE), dtype=x.dtype, device=x.device)
-    xp[:, :n] = x
+    xp = torch.cat([x, x.new_zeros((r, nt * _TILE - n))], dim=1)
     within = _seq_scan_cols(xp.reshape(r * nt, _TILE)).reshape(r, nt, _TILE)
     pref = cumsum_rows(within[:, :, -1].contiguous())
     out = torch.cat([within[:, :1], within[:, 1:] + pref[:, :-1, None]],
@@ -223,14 +228,16 @@ def segment_sum(values, seg, n_seg: int, width: int, init=None):
                       torch.full_like(seg, n_seg))
     order = torch.sort(seg, stable=True).indices
     sseg = seg[order]
-    counts = torch.bincount(sseg, minlength=n_seg + 1)
+    counts = torch.zeros(n_seg + 1, dtype=torch.int64,
+                         device=seg.device).scatter_add(
+        0, sseg, torch.ones_like(sseg))
     start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n, device=values.device) - start[sseg]
-    table = torch.zeros((n_seg + 1) * width + 1, dtype=values.dtype,
-                        device=values.device)
     flat = torch.where((sseg < n_seg) & (pos < width), sseg * width + pos,
                        torch.full_like(pos, (n_seg + 1) * width))
-    table[flat] = values[order]
+    table = torch.zeros((n_seg + 1) * width + 1, dtype=values.dtype,
+                        device=values.device).index_put(
+        (flat,), values[order])
     table = table[:n_seg * width].reshape(n_seg, width)
     acc = torch.zeros(n_seg, dtype=values.dtype, device=values.device) \
         if init is None else init

@@ -4,7 +4,11 @@ Flat per-element arrays over one table of ``N`` elements in
 ``n_groups`` segments; ordering inside a segment is (order_key, index).
 The lexsort is two stable sorts: by ``order_key`` (ties keep index
 order), then by segment.  The f32 prefix sum adds in the reference's
-compiled order (:func:`numerics.cumsum`).
+compiled order (:func:`numerics.cumsum`).  Every function is written
+out of place (no ``bincount``, no write into a fresh tensor, and
+``scatter_add`` where ``index_add``'s batching rule would loop over the
+batch), so ``torch.func.vmap`` batches each op over scenario lanes in
+one call.
 """
 from __future__ import annotations
 
@@ -30,16 +34,17 @@ def group_rank(group_key, member_mask, order_key, n_groups):
     idx = torch.arange(n, device=dev)
     gk = torch.where(member_mask, group_key.to(torch.int64), n_groups)
     order = _group_order(gk, order_key)
-    sorted_g = gk[order]
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sorted_g[1:] != sorted_g[:-1]
-    seg_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
-    rank_sorted = idx - seg_start
-    rank = torch.empty(n, dtype=torch.int64, device=dev)
-    rank[order] = rank_sorted
+    seg_start = torch.cummax(torch.where(_starts(gk[order]), idx, 0),
+                             0).values
+    rank = torch.zeros_like(idx).scatter(0, order, idx - seg_start)
     rank = torch.where(member_mask, rank, BIG).to(torch.int32)
-    counts = torch.bincount(gk, minlength=n_groups + 1)[:n_groups]
-    return rank, counts.to(torch.int32)
+    return rank, segment_count(member_mask, gk, n_groups)
+
+
+def _starts(sorted_keys):
+    """bool[N]: position i opens a run of equal keys."""
+    return torch.cat([torch.ones_like(sorted_keys[:1], dtype=torch.bool),
+                      sorted_keys[1:] != sorted_keys[:-1]])
 
 
 def group_prefix_sum(group_key, member_mask, order_key, values, n_groups):
@@ -47,21 +52,15 @@ def group_prefix_sum(group_key, member_mask, order_key, values, n_groups):
     (order_key, index) order.  Non-members get 0.  values must be >= 0.
     Same arithmetic as the reference: one global running sum, rebased at
     each segment start."""
-    n = group_key.shape[0]
-    dev = group_key.device
     gk = torch.where(member_mask, group_key.to(torch.int64), n_groups)
     v = torch.where(member_mask, values.to(torch.float32), 0.0)
     order = _group_order(gk, order_key)
     sv = v[order]
-    sg = gk[order]
     cs = numerics.cumsum(sv)                  # inclusive, global
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sg[1:] != sg[:-1]
-    base = torch.cummax(torch.where(is_start, cs - sv, -float("inf")),
-                        0).values
+    base = torch.cummax(torch.where(_starts(gk[order]), cs - sv,
+                                    -float("inf")), 0).values
     excl_sorted = cs - sv - base              # exclusive within segment
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    out[order] = excl_sorted
+    out = torch.zeros_like(sv).scatter(0, order, excl_sorted)
     return torch.where(member_mask, out, 0.0)
 
 
@@ -71,7 +70,7 @@ def segment_count(mask, seg, n_seg: int):
     seg = seg.to(torch.int64)
     keep = mask & (seg >= 0) & (seg < n_seg)
     return torch.zeros(n_seg + 1, dtype=torch.int32,
-                       device=seg.device).index_add_(
+                       device=seg.device).scatter_add(
         0, torch.where(keep, seg, n_seg), keep.to(torch.int32))[:n_seg]
 
 

@@ -10,8 +10,13 @@ the fault-tolerant broker's knobs, reservation and maintenance windows
 (``reservations``), commodity and auction pricing (the auction seeded
 from ``auction_seed``, else ``seed``) and the plan-ahead broker.  The
 network knobs (``baud_rate``, ``bg_flows``, ``trunk_*``) take effect
-with ``net_cap != 0``.  The sweep drivers are not ported yet and raise
-``NotImplementedError``.
+with ``net_cap != 0``.  ``sweep`` runs a deadline x budget grid (paper
+Figs 21-24) through the lane-batched engine (``engine.run_sweep_lanes``:
+one lane a grid point, deadline-major) and ``sweep_sharded`` splits its
+lanes across devices; both run the default scenario sources and raise
+``NotImplementedError`` for a setting the sweep engine has not ported
+(failure streams, a fault trace, windows, dynamic pricing, plan-ahead,
+``net_cap != 0``).
 """
 from __future__ import annotations
 
@@ -75,28 +80,43 @@ class ExperimentResult:
     host_syncs: int = 0           # device-to-host reads of the host loop
 
 
+engine._dataclass_pytree(ExperimentResult, static=("host_syncs",))
+
+
 def _max_events(n_gridlets: int, n_users: int, horizon: float,
                 min_period: float) -> int:
     # 4 events per gridlet lifecycle + broker polls over the horizon.
     return int(4 * n_gridlets + horizon / max(min_period, 1e-6) + 64)
 
 
+def _done_counts(g, n_users: int, n_resources: int):
+    """Gridlets DONE per user, f32[U], and per (user, resource), f32[U, R]
+    (integer-valued f32 sums: exact in any order)."""
+    done = g.status == DONE
+    u = g.user.to(torch.int64)
+    ur = u * n_resources + torch.clamp(g.resource.to(torch.int64), 0,
+                                       n_resources - 1)
+    return (segment_count(done, u, n_users).to(torch.float32),
+            segment_count(done, ur, n_users * n_resources).to(
+                torch.float32).reshape(n_users, n_resources))
+
+
 def summarize(res: engine.SimResult, params, n_users: int,
               n_resources: int,
               max_events: int | None = None) -> ExperimentResult:
+    """The experiment's statistics from the engine's result; a
+    lane-batched ``res`` and ``params`` (every leaf with a leading lane
+    axis, as ``engine.run_sweep_lanes`` takes and returns them) give
+    every field with that axis."""
     g = res.gridlets
-    done = g.status == DONE
-    u = g.user.to(torch.int64)
-    # integer-valued f32 sums: exact in any order
-    n_done = segment_count(done, u, n_users).to(torch.float32)
-    ur = u * n_resources + torch.clamp(g.resource.to(torch.int64), 0,
-                                       n_resources - 1)
-    per_res = segment_count(done, ur, n_users * n_resources).to(
-        torch.float32).reshape(n_users, n_resources)
-    dev = res.spent.device
-    truncated = torch.tensor(
-        max_events is not None and
-        int(res.n_steps) + int(res.n_spec) >= max_events, device=dev)
+    if g.status.dim() == 2:
+        n_done, per_res = engine._vmap(
+            lambda x: _done_counts(x, n_users, n_resources), g)
+    else:
+        n_done, per_res = _done_counts(g, n_users, n_resources)
+    truncated = (res.n_steps + res.n_spec >= max_events
+                 if max_events is not None
+                 else torch.zeros_like(res.n_steps, dtype=torch.bool))
     return ExperimentResult(
         n_done=n_done,
         spent=res.spent,
@@ -222,11 +242,169 @@ def run_experiment_factors(gridlets_batch, fleet, d_factor, b_factor,
                           device=dev), (deadline, budget)
 
 
-def sweep(*args, **kwargs):
-    """The deadline x budget sweep engine is not ported yet."""
-    raise NotImplementedError("sweep is not ported yet")
+def _scenario_point(template: engine.SimParams, d, b,
+                    n_users: int) -> engine.SimParams:
+    """Instantiate one grid point from the sweep's params template."""
+    dev = template.deadline.device
+    return replace(template,
+                   deadline=torch.as_tensor(d, dtype=torch.float32,
+                                            device=dev).broadcast_to(
+                       (n_users,)).clone(),
+                   budget=torch.as_tensor(b, dtype=torch.float32,
+                                          device=dev).broadcast_to(
+                       (n_users,)).clone())
 
 
-def sweep_sharded(*args, **kwargs):
-    """The sharded sweep engine is not ported yet."""
-    raise NotImplementedError("sweep_sharded is not ported yet")
+def _lane_points(template, dd, bb, n_users: int) -> engine.SimParams:
+    """The lane-batched params of the grid points (dd[i], bb[i])."""
+    return engine._stack([_scenario_point(template, d, b, n_users)
+                          for d, b in zip(dd, bb)])
+
+
+def _run_lanes_flat(gridlets_batch, fleet, template, dd, bb, *, n_users,
+                    max_events, max_jobs, batch, net_cap, device):
+    """Run a flat vector of scenario lanes through the lane-batched
+    engine (:func:`engine.run_sweep_lanes`) and summarize each."""
+    p_lanes = _lane_points(template, dd, bb, n_users)
+    res = engine.run_sweep_lanes(gridlets_batch, fleet, p_lanes, n_users,
+                                 max_events, max_jobs, batch=batch,
+                                 net_cap=net_cap, device=device)
+    return summarize(res, p_lanes, n_users, fleet.r, max_events)
+
+
+def _run_points(gridlets_batch, fleet, template, dd, bb, *, n_users,
+                max_events, max_jobs, batch, net_cap, device):
+    """The reference path of the same lanes: each point its own
+    :func:`engine.run_inner`, the summaries stacked on a lane axis."""
+    runs = []
+    for d, b in zip(dd, bb):
+        params = _scenario_point(template, d, b, n_users)
+        res = engine.run_inner(gridlets_batch, fleet, params, n_users,
+                               max_events, max_jobs, batch=batch,
+                               net_cap=net_cap, device=device)
+        runs.append(summarize(res, params, n_users, fleet.r, max_events))
+    return dataclasses.replace(engine._stack(runs),
+                               host_syncs=sum(r.host_syncs for r in runs))
+
+
+def _grid_points(deadlines, budgets):
+    """The grid's points flattened deadline-major: (deadline, budget)
+    vectors of D * B lanes."""
+    return (deadlines.repeat_interleave(budgets.shape[0]),
+            budgets.repeat(deadlines.shape[0]))
+
+
+def _grid_shape(out, lead):
+    """Reshape the lane axis of every leaf of a result to ``lead``."""
+    return engine._tree_map(lambda x: x.reshape(lead + x.shape[1:]), out)
+
+
+def _sweep_grid(gridlets_batch, fleet, template, deadlines, budgets, *,
+                n_users, max_events, max_jobs, batch, net_cap, select_free,
+                device):
+    """The deadline x budget grid, flattened deadline-major.  The
+    select-free path runs every point as a lane of one lane-batched
+    engine run; ``select_free=False`` runs the reference path, each
+    point through :func:`engine.run_inner` (the same "what" fields)."""
+    dd, bb = _grid_points(deadlines, budgets)
+    run = _run_lanes_flat if select_free else _run_points
+    out = run(gridlets_batch, fleet, template, dd, bb, n_users=n_users,
+              max_events=max_events, max_jobs=max_jobs, batch=batch,
+              net_cap=net_cap, device=device)
+    return _grid_shape(out, (deadlines.shape[0], budgets.shape[0]))
+
+
+def _sweep_statics(gridlets_batch, fleet, deadlines, opt, n_users,
+                   max_events, scenario, batch, net_cap, select_free, dev):
+    """Shared static-argument resolution for sweep / sweep_sharded."""
+    if batch is None:
+        batch = engine.DEFAULT_BATCH if select_free else 1
+    if max_events is None:
+        horizon = float(deadlines.max()) * 2.0 + 100.0
+        max_events = _max_events(gridlets_batch.n, n_users, horizon, 1.0)
+    template = _scenario_params(fleet, 0.0, 0.0, opt, n_users, scenario,
+                                dev)
+    max_jobs = safe_max_jobs(gridlets_batch, template, fleet)
+    if net_cap is None:
+        net_cap = safe_net_cap(gridlets_batch, template, fleet, n_users)
+    engine._check_lane_settings(template, net_cap, None)
+    return template, max_events, max_jobs, batch, net_cap
+
+
+def sweep(gridlets_batch, fleet, deadlines, budgets, opt=OPT_COST,
+          n_users: int = 1, max_events: int | None = None,
+          scenario: Scenario | None = None, batch: int | None = None,
+          net_cap: int | None = 0, select_free: bool = True,
+          device="cuda"):
+    """The full deadline x budget grid (paper Figs 21-24) on ``device``.
+
+    deadlines: [D], budgets: [B] -> every field gains leading [D, B]
+    dims.  ``select_free`` (default) runs every grid point as a lane of
+    one lane-batched engine run (``batch`` defaults to
+    ``engine.DEFAULT_BATCH``); ``select_free=False`` runs the reference
+    path, each point through :func:`engine.run_inner` (``batch``
+    defaults to 1).  The "what" fields are bit for bit the same either
+    way."""
+    dev = resolve_device(device)
+    gridlets_batch = to_device(gridlets_batch, dev)
+    fleet = to_device(fleet, dev)
+    deadlines = torch.as_tensor(deadlines, dtype=torch.float32, device=dev)
+    budgets = torch.as_tensor(budgets, dtype=torch.float32, device=dev)
+    template, max_events, max_jobs, batch, net_cap = _sweep_statics(
+        gridlets_batch, fleet, deadlines, opt, n_users, max_events,
+        scenario, batch, net_cap, select_free, dev)
+    return _sweep_grid(gridlets_batch, fleet, template, deadlines, budgets,
+                       n_users=n_users, max_events=max_events,
+                       max_jobs=max_jobs, batch=batch, net_cap=net_cap,
+                       select_free=select_free, device=dev)
+
+
+def sweep_sharded(gridlets_batch, fleet, deadlines, budgets,
+                  opt=OPT_COST, n_users: int = 1,
+                  max_events: int | None = None,
+                  scenario: Scenario | None = None,
+                  batch: int | None = None, net_cap: int | None = 0,
+                  select_free: bool = True, devices=None):
+    """:func:`sweep` with the scenario axis split across ``devices``
+    (default: the one card; a list may name a device more than once).
+
+    The [D, B] grid is flattened deadline-major into S = D * B lanes,
+    padded to a multiple of ``len(devices)`` with copies of the last
+    lane, and each device runs its contiguous chunk as one lane-batched
+    engine run (the chunks one after another: the host drives each
+    run's loop), so a chunk whose lanes finish early stops costing loop
+    iterations the others still run.  The padding is dropped; the result
+    is gathered on the first device, bit for bit :func:`sweep`'s."""
+    devices = [resolve_device("cuda")] if devices is None else \
+        [resolve_device(d) for d in devices]
+    first = devices[0]
+    deadlines = torch.as_tensor(deadlines, dtype=torch.float32)
+    budgets = torch.as_tensor(budgets, dtype=torch.float32)
+    d_grid, b_grid = deadlines.shape[0], budgets.shape[0]
+    s = d_grid * b_grid
+    n_dev = len(devices)
+    s_pad = -(-s // n_dev) * n_dev
+    dd, bb = _grid_points(deadlines, budgets)
+    dd = torch.cat([dd, dd[-1:].expand(s_pad - s)])
+    bb = torch.cat([bb, bb[-1:].expand(s_pad - s)])
+    chunk = s_pad // n_dev
+
+    def run_chunk(i):
+        dev = devices[i]
+        g = to_device(gridlets_batch, dev)
+        f = to_device(fleet, dev)
+        template, m_ev, m_jobs, k, cap = _sweep_statics(
+            g, f, deadlines, opt, n_users, max_events, scenario, batch,
+            net_cap, select_free, dev)
+        sl = slice(i * chunk, (i + 1) * chunk)
+        run = _run_lanes_flat if select_free else _run_points
+        return run(g, f, template, dd[sl], bb[sl], n_users=n_users,
+                   max_events=m_ev, max_jobs=m_jobs, batch=k, net_cap=cap,
+                   device=dev)
+
+    parts = [run_chunk(i) for i in range(n_dev)]
+    syncs = sum(p.host_syncs for p in parts)
+    parts = [engine._tree_map(lambda x: x.to(first), p) for p in parts]
+    out = engine._tree_map(lambda *xs: torch.cat(xs)[:s], *parts)
+    out = dataclasses.replace(out, host_syncs=syncs)
+    return _grid_shape(out, (d_grid, b_grid))

@@ -12,7 +12,8 @@ import ctypes
 import torch
 
 KERNELS = ("event_scan", "event_frontier", "link_scan", "event_scan_slab",
-           "ssd_scan", "flash_attention")
+           "ssd_scan", "flash_attention", "event_scan_lanes",
+           "event_frontier_lanes")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
@@ -34,7 +35,10 @@ F = ctypes.c_float
 _SIGNATURES = {
     "event_scan_launch": [P] * 13 + [I, I, P],
     "event_scan_checked_launch": [P, P, I] + [P] * 14 + [I, I, P],
+    "event_scan_checked_lanes_launch": [P, P, I] + [P] * 9 + [I] +
+    [P] * 5 + [I, I, I, P],
     "event_frontier_launch": [P, P, P, I, I] + [P] * 6,
+    "event_frontier_lanes_launch": [P, P, P, I, I, I] + [P] * 6,
     "link_scan_launch": [P] * 13 + [I, I, P],
     "event_scan_slab_launch": [P] * 10 + [I, I, I, I, P],
     "event_scan_slab_max_k": [I],

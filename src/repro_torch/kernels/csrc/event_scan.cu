@@ -51,6 +51,19 @@
 //   and a grid barrier would need a co-residency contract the plain
 //   launch does not.  No host read: the engine's scan makes no sync.
 //
+// event_scan, checked form over scenario lanes -- replaces what the
+//   reference's sweep engine runs over its lane batch (`_commit_lanes`'
+//   prologue, the any-lane reseed and the injected scan; `_sweep_micro`'s
+//   injected scan and `use`): the same two kernels on a (R, L) grid, the
+//   lane in blockIdx.y, over [L, R, J] slot maps, [L, N] gridlet
+//   remaining, [L, R] row inputs, [L, R, J] carries and a flag per lane.
+//   The decision "every row's flag and the carry's own flag hold" is made
+//   over the lane's own rows (flags[lane * R ..]), and block 0 of each
+//   lane writes it to use[lane]; with `reseed` a lane that fails it sorts
+//   every row afresh, without it every lane scans with its carry (the
+//   micro-steps, which decline on a stale carry).  One block a row, as
+//   above: at the sweep's J = 32 most of a block's 256 threads idle.
+//
 // link_scan -- replaces the Pallas kernel `link_scan`
 //   (event_scan.py: `_link_kernel` and `_link_kernel_cap` over
 //   `_link_math`, pl.pallas_call at :872), and, in its engine form, what
@@ -114,7 +127,9 @@
 //   so the outputs match the plain version bitwise.  (Grouping a warp's
 //   lanes by segment with __match_any_sync and reducing them with
 //   __reduce_*_sync before the atomics measured slower on the card than
-//   that.)
+//   that.)  The lane form runs one such block per scenario lane (the lane
+//   in blockIdx.x), each over its own row of an [L, C] candidate table
+//   with the same segment layout.
 //
 // event_scan_slab -- replaces the Pallas kernel `event_scan_slab`
 //   (event_scan.py: `_slab_kernel` over `_slab_waves` and
@@ -315,6 +330,12 @@ struct TableIn {
   const int* rg;            // non-null: gather from the slot map
   const float* g_rem;
   int n_gridlets;
+  // The same source for scenario lane `lane`: its gridlets' remaining.
+  __device__ TableIn at_lane(int lane) const {
+    TableIn out = *this;
+    if (g_rem != nullptr) out.g_rem += static_cast<size_t>(lane) * n_gridlets;
+    return out;
+  }
   __device__ void slot(size_t at, float* x, float* t) const {
     if (rg == nullptr) {
       *x = rem[at];
@@ -393,22 +414,27 @@ __device__ void sort_row(const float* key, const float* tkey, int J, int n,
   }
 }
 
-// One block per resource row.  The rank the row's shares are cut by:
+// One block per resource row, blockIdx.y the scenario lane (one lane
+// but for the checked lane form; row arrays are [L, R, ...]).  The rank
+// the row's shares are cut by:
 //   rank_in == nullptr: a fresh sort (written to rank_out when that is
 //     non-null);
 //   rank_in, flags == nullptr: the injected rank;
-//   flags (the checked form): the carried rank rank_in if *slab_ok and
-//     every row's flag hold, else a fresh sort of every row; rank_out
-//     gets the rank used, and block 0 adds a reseed to *n_reseeds.
+//   flags (the checked form): the carried rank rank_in if slab_ok[lane]
+//     and every one of the lane's row flags hold (`use`), else, with
+//     `reseed`, a fresh sort of each of the lane's rows; rank_out gets
+//     the rank used; block 0 of the lane adds a reseed to *n_reseeds
+//     (when non-null) and writes `use` to use_out[lane] (when non-null).
 // Shared memory: key, tkey [J] f32, then idx [n] u16 for a sort.
 __global__ void __launch_bounds__(kScanThreads)
 event_scan_kernel(TableIn in, RowIn rows, const float* __restrict__ rank_in,
                   const int* __restrict__ flags,
                   const bool* __restrict__ slab_ok,
-                  int* __restrict__ n_reseeds,
-                  float* __restrict__ rate_out, float* __restrict__ tmin_out,
-                  int* __restrict__ amin_out, int* __restrict__ occ_out,
-                  float* __restrict__ rank_out, int R, int J, int n) {
+                  int* __restrict__ n_reseeds, bool* __restrict__ use_out,
+                  int reseed, float* __restrict__ rate_out,
+                  float* __restrict__ tmin_out, int* __restrict__ amin_out,
+                  int* __restrict__ occ_out, float* __restrict__ rank_out,
+                  int R, int J, int n) {
   extern __shared__ float smem[];
   float* key = smem;            // remaining, BIG where the slot is invalid
   float* tkey = smem + J;       // tie key, BIG where invalid
@@ -416,18 +442,27 @@ event_scan_kernel(TableIn in, RowIn rows, const float* __restrict__ rank_in,
   __shared__ float redf[32];
   __shared__ int redi[32];
 
-  const int r = blockIdx.x;
-  const size_t row = static_cast<size_t>(r) * J;
-  const RowMask rm(rows.npe, rows.pol, rows.blk, rows.ok, r);
-  const int occ = row_keys(in, row, J, rm.dead, key, tkey, redi);
-  const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol, rows.mips[r]);
+  const int r = blockIdx.x, lane = blockIdx.y;
+  const int lr = lane * R + r;  // the row among every lane's rows
+  const size_t row = static_cast<size_t>(lr) * J;
+  const RowMask rm(rows.npe, rows.pol, rows.blk, rows.ok, lr);
+  const int occ = row_keys(in.at_lane(lane), row, J, rm.dead, key, tkey,
+                           redi);
+  const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol,
+                     rows.mips[lr]);
 
   bool fresh = rank_in == nullptr;
-  if (flags != nullptr) {       // the same answer in every block
-    int all = *slab_ok ? 1 : 0;
-    for (int q = threadIdx.x; q < R; q += blockDim.x) all &= flags[q] != 0;
-    fresh = !__syncthreads_and(all);
-    if (fresh && r == 0 && threadIdx.x == 0) *n_reseeds += 1;
+  if (flags != nullptr) {       // the same answer in every block of a lane
+    const int* lane_flags = flags + static_cast<size_t>(lane) * R;
+    int all = slab_ok[lane] ? 1 : 0;
+    for (int q = threadIdx.x; q < R; q += blockDim.x)
+      all &= lane_flags[q] != 0;
+    const bool use = __syncthreads_and(all);
+    fresh = reseed && !use;
+    if (r == 0 && threadIdx.x == 0) {
+      if (n_reseeds != nullptr && fresh) *n_reseeds += 1;
+      if (use_out != nullptr) use_out[lane] = use;
+    }
   }
 
   // rate and forecast of column j at rank rk (BIG where invalid)
@@ -466,9 +501,9 @@ event_scan_kernel(TableIn in, RowIn rows, const float* __restrict__ rank_in,
     if (at_min(j) && tkey[j] <= tie_min) col_local = min(col_local, j);
   const int amin = block_min(col_local, redi);
   if (threadIdx.x == 0) {
-    tmin_out[r] = tmin;
-    amin_out[r] = amin;
-    occ_out[r] = occ;
+    tmin_out[lr] = tmin;
+    amin_out[lr] = amin;
+    occ_out[lr] = occ;
   }
 }
 
@@ -477,26 +512,28 @@ event_scan_kernel(TableIn in, RowIn rows, const float* __restrict__ rank_in,
 // row never consults its rank (space-shared, or g <= P_eff), or the
 // lexicographic max of its carried MaxShare side (valid, rank < msc)
 // lies strictly below the min of its MinShare side (rank >= msc).  With
-// the carry invalid (!*slab_ok) there is nothing to decide.
+// the lane's carry invalid (!slab_ok[lane]) there is nothing to decide.
+// blockIdx.y is the scenario lane, as in event_scan_kernel.
 __global__ void __launch_bounds__(kScanThreads)
 event_scan_check_kernel(TableIn in, RowIn rows,
                         const float* __restrict__ carry,
                         const bool* __restrict__ slab_ok,
-                        int* __restrict__ flags, int J) {
-  if (!*slab_ok) return;
+                        int* __restrict__ flags, int R, int J) {
+  if (!slab_ok[blockIdx.y]) return;
   extern __shared__ float smem[];
   float* key = smem;
   float* tkey = smem + J;
   __shared__ float redf[32];
   __shared__ int redi[32];
 
-  const int r = blockIdx.x;
-  const size_t row = static_cast<size_t>(r) * J;
-  const RowMask rm(rows.npe, rows.pol, rows.blk, rows.ok, r);
-  const int occ = row_keys(in, row, J, rm.dead, key, tkey, redi);
+  const int lr = blockIdx.y * R + blockIdx.x;
+  const size_t row = static_cast<size_t>(lr) * J;
+  const RowMask rm(rows.npe, rows.pol, rows.blk, rows.ok, lr);
+  const int occ = row_keys(in.at_lane(blockIdx.y), row, J, rm.dead, key,
+                           tkey, redi);
   const Fig8Row fig8(static_cast<float>(occ), rm.npe_e, rm.pol, 0.0f);
   if (fig8.whole_pe) {
-    if (threadIdx.x == 0) flags[r] = 1;
+    if (threadIdx.x == 0) flags[lr] = 1;
     return;
   }
   float lo = -kBig, hi = kBig;
@@ -519,7 +556,7 @@ event_scan_check_kernel(TableIn in, RowIn rows,
   const float tie_lo = block_max(tlo, redf);
   const float tie_hi = block_min(thi, redf);
   if (threadIdx.x == 0)
-    flags[r] = (rem_lo < rem_hi) || (rem_lo == rem_hi && tie_lo < tie_hi);
+    flags[lr] = (rem_lo < rem_hi) || (rem_lo == rem_hi && tie_lo < tie_hi);
 }
 
 // Where a link row's slots come from: the remaining bytes rem [L, T],
@@ -752,7 +789,9 @@ __device__ __forceinline__ float from_ordered(int o) {
   return __int_as_float(o >= 0 ? o : o ^ 0x7fffffff);
 }
 
-// One block.  Shared memory: the S + 1 segment offsets, then the
+// One block a scenario lane (blockIdx.x; one lane but for the lane form),
+// over the lane's row of the [L, C] candidates and its outputs.  Shared
+// memory: the S + 1 segment offsets, then the
 // per-segment ordered minimum, ordered safe minimum and due count.  A
 // thread takes candidates i = tid, tid + blockDim, ..., kFrontierLoads at
 // a time (loads in flight together), keeps running values for the
@@ -765,6 +804,16 @@ event_frontier_kernel(const float* __restrict__ cand,
                       float* __restrict__ t_star_out, bool* __restrict__ fired,
                       int* __restrict__ counts, float* __restrict__ t_safe_out,
                       float* __restrict__ mins) {
+  {
+    const size_t lane = blockIdx.x;
+    cand += lane * C;
+    if (cuts != nullptr) cuts += lane * C;
+    fired += lane * S;
+    counts += lane * S;
+    mins += lane * S;
+    t_star_out += lane;
+    t_safe_out += lane;
+  }
   extern __shared__ int fsm[];
   int* soff = fsm;              // [S + 1]
   int* smin = fsm + S + 1;      // [S]
@@ -1085,7 +1134,8 @@ extern "C" int event_scan_launch(const float* rem, const float* tie,
                       static_cast<cudaStream_t>(stream)>>>(
       TableIn{rem, tie, nullptr, nullptr, 0},
       RowIn{mips, npe, pol, blk, ok}, rank_in, nullptr, nullptr, nullptr,
-      rate, tmin, amin, occ, rank_out, R, J, static_cast<int>(n));
+      nullptr, 1, rate, tmin, amin, occ, rank_out, R, J,
+      static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1093,12 +1143,14 @@ extern "C" int event_scan_launch(const float* rem, const float* tie,
 // the gridlets' remaining g_rem [N]; carry [R, J] and *slab_ok the
 // carried rank and its flag; flags [R] int scratch; *n_reseeds the
 // device counter; rank_out gets the rank used (never the carry itself).
-extern "C" int event_scan_checked_launch(
-    const int* rg, const float* g_rem, int n_gridlets, const float* mips,
-    const float* npe, const float* pol, const float* blk, const float* ok,
-    const float* carry, const bool* slab_ok, int* flags, int* n_reseeds,
-    float* rate, float* tmin, int* amin, int* occ, float* rank_out, int R,
-    int J, void* stream) {
+static int checked_launch(const int* rg, const float* g_rem, int n_gridlets,
+                          const float* mips, const float* npe,
+                          const float* pol, const float* blk,
+                          const float* ok, const float* carry,
+                          const bool* slab_ok, int* flags, int* n_reseeds,
+                          bool* use_out, int reseed, float* rate,
+                          float* tmin, int* amin, int* occ, float* rank_out,
+                          int L, int R, int J, void* stream) {
   const size_t n = sort_width(J);
   const size_t keys = 2 * static_cast<size_t>(J) * sizeof(float);
   const size_t smem = keys + n * sizeof(unsigned short);
@@ -1110,14 +1162,41 @@ extern "C" int event_scan_checked_launch(
   const TableIn in{nullptr, nullptr, rg, g_rem, n_gridlets};
   const RowIn rows{mips, npe, pol, blk, ok};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  event_scan_check_kernel<<<R, kScanThreads, keys, s>>>(in, rows, carry,
-                                                        slab_ok, flags, J);
+  const dim3 grid(R, L);
+  event_scan_check_kernel<<<grid, kScanThreads, keys, s>>>(
+      in, rows, carry, slab_ok, flags, R, J);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  event_scan_kernel<<<R, kScanThreads, smem, s>>>(
-      in, rows, carry, flags, slab_ok, n_reseeds, rate, tmin, amin, occ,
-      rank_out, R, J, static_cast<int>(n));
+  event_scan_kernel<<<grid, kScanThreads, smem, s>>>(
+      in, rows, carry, flags, slab_ok, n_reseeds, use_out, reseed, rate,
+      tmin, amin, occ, rank_out, R, J, static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int event_scan_checked_launch(
+    const int* rg, const float* g_rem, int n_gridlets, const float* mips,
+    const float* npe, const float* pol, const float* blk, const float* ok,
+    const float* carry, const bool* slab_ok, int* flags, int* n_reseeds,
+    float* rate, float* tmin, int* amin, int* occ, float* rank_out, int R,
+    int J, void* stream) {
+  return checked_launch(rg, g_rem, n_gridlets, mips, npe, pol, blk, ok,
+                        carry, slab_ok, flags, n_reseeds, nullptr, 1, rate,
+                        tmin, amin, occ, rank_out, 1, R, J, stream);
+}
+
+// The checked form over L scenario lanes: rg [L, R, J], g_rem [L, N],
+// the row inputs [L, R], carry and rank_out [L, R, J], slab_ok and use_out
+// [L], flags [L, R] int scratch, the other outputs [L, R] (a lane's rows
+// contiguous); `reseed` 0: every lane scans with its carry.
+extern "C" int event_scan_checked_lanes_launch(
+    const int* rg, const float* g_rem, int n_gridlets, const float* mips,
+    const float* npe, const float* pol, const float* blk, const float* ok,
+    const float* carry, const bool* slab_ok, int* flags, bool* use_out,
+    int reseed, float* rate, float* tmin, int* amin, int* occ,
+    float* rank_out, int L, int R, int J, void* stream) {
+  return checked_launch(rg, g_rem, n_gridlets, mips, npe, pol, blk, ok,
+                        carry, slab_ok, flags, nullptr, use_out, reseed,
+                        rate, tmin, amin, occ, rank_out, L, R, J, stream);
 }
 
 // The public form passes tie and cap (or a null cap), the engine form lg
@@ -1137,21 +1216,34 @@ extern "C" int link_scan_launch(const float* rem, const float* tie,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One block; outputs t_star and t_safe [1], fired (bool), counts and
-// mins [S]; off [S + 1] the segment offsets, C = off[S].
+// One block a lane; outputs t_star and t_safe [L], fired (bool), counts
+// and mins [L, S]; cand (and cuts, or null) [L, C]; off [S + 1] the
+// segment offsets every lane shares, C = off[S].
+extern "C" int event_frontier_lanes_launch(const float* cand,
+                                           const float* cuts, const int* off,
+                                           int S, int C, int L, float* t_star,
+                                           bool* fired, int* counts,
+                                           float* t_safe, float* mins,
+                                           void* stream) {
+  static size_t allowed = kDefaultSmem;
+  const size_t smem = (4 * static_cast<size_t>(S) + 1) * sizeof(int);
+  const cudaError_t err = allow_smem(event_frontier_kernel, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  event_frontier_kernel<<<L, kFrontierThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      cand, cuts, off, S, C, t_star, fired, counts, t_safe, mins);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The one-lane form: outputs t_star and t_safe [1], fired, counts and
+// mins [S].
 extern "C" int event_frontier_launch(const float* cand, const float* cuts,
                                      const int* off, int S, int C,
                                      float* t_star, bool* fired, int* counts,
                                      float* t_safe, float* mins,
                                      void* stream) {
-  static size_t allowed = kDefaultSmem;
-  const size_t smem = (4 * static_cast<size_t>(S) + 1) * sizeof(int);
-  const cudaError_t err = allow_smem(event_frontier_kernel, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  event_frontier_kernel<<<1, kFrontierThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      cand, cuts, off, S, C, t_star, fired, counts, t_safe, mins);
-  return static_cast<int>(cudaGetLastError());
+  return event_frontier_lanes_launch(cand, cuts, off, S, C, 1, t_star, fired,
+                                     counts, t_safe, mins, stream);
 }
 
 // The slab kernel's shared memory (its layout above), with the wave

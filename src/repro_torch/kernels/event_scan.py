@@ -35,6 +35,12 @@ Each function has two implementations with identical arithmetic:
   :func:`event_frontier_ref` -- used for tensors on the CPU and as the
   card-side yardstick the kernels are held against.
 
+The sweep engine (``engine.run_sweep_lanes``) runs the lane forms of
+the checked scan and the frontier (:func:`event_scan_checked_lanes_cuda`
+/ :func:`event_scan_checked_lanes_ref`, :func:`event_frontier_lanes_cuda`
+/ :func:`event_frontier_lanes_ref`): one launch over every scenario
+lane, each lane's outputs bitwise the one-lane form's.
+
 The engine's scan is ``event_scan``'s checked form
 (:func:`event_scan_checked_cuda` / :func:`event_scan_checked_ref`): the
 table gathered from the slot map, the carried rank checked, and the
@@ -187,8 +193,13 @@ def _gather_table(row_gridlet, remaining):
 def _partition_ok(rem, tie, valid, rank, npe_e, g, pol):
     """True iff the carried rank still yields the exact Fig 8 rate
     assignment the fresh lexsort rank would (the reference engine's
-    ``_partition_ok``): in every row that consults its rank, the carried
-    MaxShare side's lexicographic max lies strictly below the MinShare
+    ``_partition_ok``): :func:`_partition_rows` holds in every row."""
+    return _partition_rows(rem, tie, valid, rank, npe_e, g, pol).all()
+
+
+def _partition_rows(rem, tie, valid, rank, npe_e, g, pol):
+    """bool [R, 1]: the row never consults its rank, or its carried
+    MaxShare side's lexicographic max lies strictly below its MinShare
     side's min."""
     m = torch.clamp_min(npe_e, 1.0)
     k = torch.floor(g / m)
@@ -204,7 +215,7 @@ def _partition_ok(rem, tie, valid, rank, npe_e, g, pol):
         dim=1, keepdim=True).values
     row_ok = (rem_lo < rem_hi) | ((rem_lo == rem_hi) & (tie_lo < tie_hi))
     rank_free = (pol > 0.5) | (g <= npe_e)
-    return (rank_free | row_ok).all()
+    return rank_free | row_ok
 
 
 def event_scan_checked_ref(row_gridlet, remaining, mips_eff, num_pe,
@@ -232,6 +243,47 @@ def event_scan_checked_ref(row_gridlet, remaining, mips_eff, num_pe,
                           pe_blocked=pe_blocked, row_ok=row_ok,
                           rank=torch.where(use, rank_carry, fresh),
                           with_rank=True)
+
+
+def event_scan_checked_lanes_ref(row_gridlet, remaining, mips_eff, num_pe,
+                                 policy, pe_blocked, row_ok, rank_carry,
+                                 slab_ok, *, reseed=True):
+    """Plain PyTorch checked scan over scenario lanes: row_gridlet
+    i32[L, R, J], remaining f32[L, N], the per-row f32[L, R] inputs,
+    rank_carry f32[L, R, J] and slab_ok bool[L].  Each lane's carry is
+    kept if its flag and every one of its rows' checks hold
+    (``use``); else, with ``reseed``, all its rows take the fresh
+    lexsort rank, and without it they scan with the carry all the same
+    (the sweep engine's micro-steps, which decline on a stale carry).
+    The rows are independent, so they run as one [L * R, J] table:
+    every lane's outputs are :func:`event_scan_checked_ref`'s bitwise.
+    Returns (rate [L, R, J], t_min, argmin, occupancy [L, R], rank
+    [L, R, J]) and use bool[L]."""
+    PLAIN_CALLS["event_scan_lanes"] += 1
+    n_lanes, r, j = row_gridlet.shape
+    occupied = row_gridlet >= 0
+    gid = torch.clamp(row_gridlet.to(torch.int64), 0, remaining.shape[1] - 1)
+    slot_rem = torch.gather(remaining, 1, gid.reshape(n_lanes, -1)).reshape(
+        n_lanes, r, j)
+    rem = torch.where(occupied, torch.clamp_min(slot_rem, 1e-30),
+                      0.0).reshape(-1, j)
+    tie = torch.where(occupied, row_gridlet, 2 ** 30).to(
+        torch.float32).reshape(-1, j)
+    mips, npe, pol, blk, ok = (x.reshape(-1) for x in (
+        mips_eff, num_pe, policy, pe_blocked, row_ok))
+    carry = rank_carry.reshape(-1, j)
+    npe_e, valid, g = _row_masks(rem, npe[:, None], pol[:, None],
+                                 blk[:, None], ok[:, None])
+    rows_ok = _partition_rows(rem, tie, valid, carry, npe_e, g,
+                              pol[:, None]).reshape(n_lanes, r)
+    use = slab_ok & rows_ok.all(dim=1)
+    rank = carry
+    if reseed:
+        fresh = _lexsort_rank(rem, tie, valid)[0]
+        rank = torch.where(use.repeat_interleave(r)[:, None], carry, fresh)
+    out = event_scan_ref(rem, mips, npe, tie=tie, policy=pol, pe_blocked=blk,
+                         row_ok=ok, rank=rank, with_rank=True)
+    return tuple(x.reshape((n_lanes, r) + x.shape[1:]) for x in out), use
 
 
 def _live_rows(row_ok, live):
@@ -519,6 +571,37 @@ def event_frontier_ref(cand, sizes, cuts=None):
     return _frontier_finish(mins, counts, safe)
 
 
+def event_frontier_lanes_ref(cand, sizes, cuts=None):
+    """Plain PyTorch event frontier over scenario lanes: cand f32[L, C],
+    each row laid out as ``sizes`` says, cuts bool[L, C] (default all).
+    Every lane's outputs are :func:`event_frontier_ref`'s bitwise (a
+    minimum and a count are exact in any order).  Returns (t_star [L],
+    fired bool[L, S], counts i32[L, S], t_safe [L], per_source_min f32
+    [L, S])."""
+    PLAIN_CALLS["event_frontier_lanes"] += 1
+    n_lanes, c = cand.shape
+    n_src = len(sizes)
+    if sum(sizes) != c:
+        raise ValueError("segment layout out of sync with candidates")
+    dev = cand.device
+    cand = cand.to(torch.float32)
+    seg = _segment_ids(sizes, dev).expand(n_lanes, c)
+    inf = torch.full((n_lanes, n_src), INF, dtype=torch.float32, device=dev)
+    mins = inf.scatter_reduce(1, seg, cand, "amin")
+    if n_src == 0:
+        t_inf = torch.full((n_lanes,), INF, device=dev)
+        return t_inf, mins > 0, mins.to(torch.int32), t_inf, mins
+    t_star = mins.min(dim=1).values
+    due = (cand <= t_star[:, None]) & (cand < INF)
+    counts = torch.zeros((n_lanes, n_src), dtype=torch.int32,
+                         device=dev).scatter_add(1, seg, due.to(torch.int32))
+    cut = cand if cuts is None else torch.where(
+        cuts.to(torch.float32) > 0.5, cand, INF)
+    safe = inf.scatter_reduce(1, seg, cut, "amin")
+    fired = torch.isfinite(mins) & (mins <= t_star[:, None])
+    return t_star, fired, counts, safe.min(dim=1).values, mins
+
+
 # ----------------------------------------------------------------------
 # CUDA kernels (csrc/event_scan.cu), built at first use
 # ----------------------------------------------------------------------
@@ -647,6 +730,62 @@ def event_scan_checked_cuda(row_gridlet, remaining, mips_eff, num_pe,
         _raise_on(err, "event_scan")
         LAUNCHES["event_scan"] += 1
     return outs[:5]
+
+
+def _scan_lane_outputs(n_lanes, r, j, dev):
+    """(rate, t_min, argmin, occupancy, rank, row flags, use) of a checked
+    scan over lanes."""
+    f32, i32 = torch.float32, torch.int32
+    return (torch.empty((n_lanes, r, j), dtype=f32, device=dev),
+            torch.empty((n_lanes, r), dtype=f32, device=dev),
+            torch.empty((n_lanes, r), dtype=i32, device=dev),
+            torch.empty((n_lanes, r), dtype=i32, device=dev),
+            torch.empty((n_lanes, r, j), dtype=f32, device=dev),
+            torch.empty((n_lanes, r), dtype=i32, device=dev),
+            torch.empty((n_lanes,), dtype=torch.bool, device=dev))
+
+
+def event_scan_checked_lanes_cuda(row_gridlet, remaining, mips_eff, num_pe,
+                                  policy, pe_blocked, row_ok, rank_carry,
+                                  slab_ok, *, reseed=True, scratch=None):
+    """:func:`event_scan_checked_lanes_ref` as one launcher call: the
+    checked form's two kernels on an (R, L) grid, each lane deciding its
+    own carry; the same outputs bitwise, no host read.  With ``scratch``
+    (a sweep run's :class:`Scratch`) the inputs are taken as the engine
+    makes them, unchecked, and the outputs are the scratch's; without
+    it every input is checked and the outputs are new."""
+    if remaining.device.type != "cuda":
+        raise ValueError("event_scan_checked_lanes_cuda takes CUDA tensors")
+    n_lanes, r, j = row_gridlet.shape
+    dev = remaining.device
+    if scratch is None:
+        f32 = torch.float32
+        _check(row_gridlet, "row_gridlet", (n_lanes, r, j), torch.int32, dev)
+        _check(remaining, "remaining", (n_lanes, remaining.shape[-1]), f32,
+               dev)
+        for name, v in (("mips_eff", mips_eff), ("num_pe", num_pe),
+                        ("policy", policy), ("pe_blocked", pe_blocked),
+                        ("row_ok", row_ok)):
+            _check(v, name, (n_lanes, r), f32, dev)
+        _check(rank_carry, "rank_carry", (n_lanes, r, j), f32, dev)
+        _check(slab_ok, "slab_ok", (n_lanes,), torch.bool, dev)
+        outs = _scan_lane_outputs(n_lanes, r, j, dev)
+        out_ptrs = tuple(t.data_ptr() for t in outs)
+    else:
+        outs, out_ptrs = scratch.take(
+            ("event_scan_lanes", n_lanes, r, j),
+            lambda: _scan_lane_outputs(n_lanes, r, j, dev))
+    if n_lanes and r:
+        rate, tmin, amin, occ, rank, flags, use = out_ptrs
+        err = _lib().event_scan_checked_lanes_launch(
+            row_gridlet.data_ptr(), remaining.data_ptr(), remaining.shape[-1],
+            mips_eff.data_ptr(), num_pe.data_ptr(), policy.data_ptr(),
+            pe_blocked.data_ptr(), row_ok.data_ptr(), rank_carry.data_ptr(),
+            slab_ok.data_ptr(), flags, use, int(bool(reseed)), rate, tmin,
+            amin, occ, rank, n_lanes, r, j, _stream(dev))
+        _raise_on(err, "event_scan_lanes")
+        LAUNCHES["event_scan_lanes"] += 1
+    return outs[:5], outs[6]
 
 
 @functools.lru_cache(maxsize=None)
@@ -801,6 +940,52 @@ def _frontier_outputs(n_src, dev):
             torch.empty((n_src,), dtype=torch.int32, device=dev),
             torch.empty((), dtype=f32, device=dev),
             torch.empty((n_src,), dtype=f32, device=dev))
+
+
+def _frontier_lane_outputs(n_lanes, n_src, dev):
+    """(t_star, fired, counts, t_safe, per-source min) of a frontier over
+    lanes."""
+    f32 = torch.float32
+    return (torch.empty((n_lanes,), dtype=f32, device=dev),
+            torch.empty((n_lanes, n_src), dtype=torch.bool, device=dev),
+            torch.empty((n_lanes, n_src), dtype=torch.int32, device=dev),
+            torch.empty((n_lanes,), dtype=f32, device=dev),
+            torch.empty((n_lanes, n_src), dtype=f32, device=dev))
+
+
+def event_frontier_lanes_cuda(cand, sizes, cuts=None, *, scratch=None):
+    """:func:`event_frontier_lanes_ref` as one CUDA kernel launch, one
+    block a lane.  With ``scratch`` (a sweep run's :class:`Scratch`; the
+    engine's candidates are f32 and contiguous) the candidates are taken
+    unchecked and the outputs are the scratch's; without it the inputs
+    are cast and checked and the outputs are new."""
+    if cand.device.type != "cuda":
+        raise ValueError("event_frontier_lanes_cuda takes CUDA tensors")
+    n_lanes, c = cand.shape
+    n_src = len(sizes)
+    dev = cand.device
+    if scratch is None:
+        if sum(sizes) != c:
+            raise ValueError("segment layout out of sync with candidates")
+        cand = cand.to(torch.float32).contiguous()
+        _check(cand, "cand", (n_lanes, c), torch.float32, dev)
+        if cuts is not None:
+            cuts = cuts.to(torch.float32).contiguous()
+            _check(cuts, "cuts", (n_lanes, c), torch.float32, dev)
+        outs = _frontier_lane_outputs(n_lanes, n_src, dev)
+        out_ptrs = tuple(t.data_ptr() for t in outs)
+    else:
+        outs, out_ptrs = scratch.take(
+            ("event_frontier_lanes", n_lanes, n_src),
+            lambda: _frontier_lane_outputs(n_lanes, n_src, dev))
+    if n_lanes:
+        off = _segment_offsets(tuple(sizes), dev)
+        err = _lib().event_frontier_lanes_launch(
+            cand.data_ptr(), None if cuts is None else cuts.data_ptr(),
+            off.data_ptr(), n_src, c, n_lanes, *out_ptrs, _stream(dev))
+        _raise_on(err, "event_frontier_lanes")
+        LAUNCHES["event_frontier_lanes"] += 1
+    return outs
 
 
 def event_frontier_cuda(cand, sizes, cuts=None, *, scratch=None):

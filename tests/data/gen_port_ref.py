@@ -2,14 +2,15 @@
 tests/data/port_ref_main.json (the main path),
 tests/data/port_ref_net.json (the contended network),
 tests/data/port_ref_fail.json (failures, fault traces, retries),
-tests/data/port_ref_rand.json (the PRNG and XLA:CPU's transcendentals)
-and tests/data/port_ref_econ.json (reservations, pricing, plan-ahead).
+tests/data/port_ref_rand.json (the PRNG and XLA:CPU's transcendentals),
+tests/data/port_ref_econ.json (reservations, pricing, plan-ahead) and
+tests/data/port_ref_sweep.json (the lane-batched sweep engine).
 
 Run from the repo root with the JAX reference on the CPU:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net|fail|rand|econ]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/data/gen_port_ref.py [main|net|fail|rand|econ|sweep]
 
-(no argument writes all five).  port_ref_main.json holds four cells of
+(no argument writes all six).  port_ref_main.json holds four cells of
 ``benchmarks/engine_bench.py``: 1u_200j, 20u_100j and 200u_10j on the
 WWG fleet, 4u_512j on the deep 2 x 80-PE fleet; gridlets from
 ``task_farm(PRNGKey(3))``, cost optimisation, the engine's default
@@ -43,6 +44,19 @@ cell must move ``term_time`` or ``spent`` against the same cell without
 windows, each pricing cell must write MARKET or AUCTION rows into its
 trace, and ``20u_100j_plan`` must differ from the same knobs without
 plan-ahead.
+port_ref_sweep.json holds ``simulation.sweep`` (the lane-batched engine,
+``engine.run_sweep_lanes``, deadline-major lanes) and lane stacks of
+``Scenario(policy=)``: three small cells in full for the CPU replay
+(``sweep_1u_40j_3x3``, ``sweep_3u_8j_2x2`` under coarse polls, and
+``strategies_1u_40j``, the four policy lanes of
+``examples/table1_strategies.py``, its gridlets drawn in the threefry
+layout its header's table was made in, ``partitionable=False``), and
+three for the card, whose
+per-gridlet fields are stored as the SHA-256 of each lane's bytes:
+``sweep_1u_200j_8x18`` (the paper's Figs 21-24 grid), ``sweep_20u_25j_2x2``
+(``engine_bench._sweep_bench``'s grid, coarse polls) and
+``strategies_20u_25j`` (``engine_bench._strategy_sweep``'s four policy
+lanes).  Every lane records its "how" counters too.
 Every float (inputs and results) is stored as its uint32 bit pattern,
 so the comparison is bitwise and needs no JAX.
 """
@@ -64,6 +78,7 @@ OUT_NET = os.path.join(HERE, "port_ref_net.json")
 OUT_FAIL = os.path.join(HERE, "port_ref_fail.json")
 OUT_RAND = os.path.join(HERE, "port_ref_rand.json")
 OUT_ECON = os.path.join(HERE, "port_ref_econ.json")
+OUT_SWEEP = os.path.join(HERE, "port_ref_sweep.json")
 
 CELLS = (
     # name, n_users, n_jobs_per_user, fleet, deadline, budget
@@ -370,6 +385,151 @@ def direct_cell():
     }
 
 
+# The deadline x budget sweep and the strategy lanes.  A grid cell is
+# ``simulation.sweep`` spelled out (its statics, its deadline-major
+# lanes, ``engine.run_sweep_lanes`` under jit) so each lane's trace is
+# kept; the CPU cells are checked against ``simulation.sweep`` itself.
+COARSE = dict(sched_min_period=10.0, sched_frac=0.05)
+SWEEP_CELLS = (
+    # name, seed, n_users, n_jobs_per_user, deadlines, budgets, knobs, full
+    ("sweep_1u_40j_3x3", 7, 1, 40, [100.0, 1100.0, 3100.0],
+     [5000.0, 12000.0, 22000.0], {}, True),
+    ("sweep_3u_8j_2x2", 5, 3, 8, [700.0, 1400.0], [6000.0, 14000.0],
+     COARSE, True),
+    ("sweep_1u_200j_8x18", 7, 1, 200, [100.0 + 500.0 * i for i in range(8)],
+     [5000.0 + 1000.0 * i for i in range(18)], {}, False),
+    ("sweep_20u_25j_2x2", 3, 20, 25, [1500.0, 2000.0], [15000.0, 22000.0],
+     COARSE, False),
+)
+STRATEGIES = (("cost", types.OPT_COST), ("time", types.OPT_TIME),
+              ("cost-time", types.OPT_COST_TIME), ("none", types.OPT_NONE))
+LANE_CELLS = (
+    # name, seed, n_users, n_jobs, base_mi, deadline, budget, max_events
+    # (None: engine_bench's), full, threefry layout of the gridlets' draw
+    # (the example's header table was made with the older layout, C1)
+    ("strategies_1u_40j", 9, 1, 40, 50_000.0, 1200.0, 30_000.0, 8192, True,
+     False),
+    ("strategies_20u_25j", 3, 20, 25, 10_000.0, 2000.0, 22_000.0, None,
+     False, True),
+)
+GRIDLET_OUT = (("status", np.int32), ("resource", np.int32),
+               ("start", np.float32), ("finish", np.float32),
+               ("returned", np.float32), ("cost", np.float32))
+
+
+def _sha(x, dtype):
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(x).astype(dtype)).tobytes()).hexdigest()
+
+
+def _lane_results(res, r, full):
+    """One record per lane: every small field and the trace in full;
+    the per-gridlet fields in full or as the SHA-256 of their bytes."""
+    out = []
+    for i in range(int(np.asarray(r.spent).shape[0])):
+        lane = jax.tree_util.tree_map(lambda a: a[i], r)
+        one = jax.tree_util.tree_map(lambda a: a[i], res)
+        rec = _result(lane, one)
+        if not full:
+            for f, dtype in GRIDLET_OUT:
+                rec[f] = _sha(getattr(lane.gridlets, f), dtype)
+        out.append(rec)
+    return out
+
+
+def _run_lanes(g, fleet, p_lanes, n_users, max_events, max_jobs, batch):
+    res = jax.jit(lambda pp: engine.run_sweep_lanes(
+        g, fleet, pp, n_users, max_events, max_jobs, batch=batch))(p_lanes)
+    r = jax.vmap(lambda a, p: simulation.summarize(
+        a, p, n_users, fleet.r, max_events))(res, p_lanes)
+    return res, r
+
+
+def sweep_cell(name, seed, n_users, n_jobs, deadlines, budgets, knobs,
+               full):
+    fleet = resource.wwg_fleet()
+    g = gridlet.task_farm(jax.random.PRNGKey(seed), n_jobs=n_jobs,
+                          n_users=n_users)
+    scenario = simulation.Scenario(**knobs)
+    dl = jnp.asarray(deadlines, jnp.float32)
+    bl = jnp.asarray(budgets, jnp.float32)
+    template, max_events, max_jobs, batch, net_cap = \
+        simulation._sweep_statics(g, fleet, dl, types.OPT_COST, n_users,
+                                  None, scenario, None, 0, True)
+    dd = jnp.repeat(dl, bl.shape[0])
+    bb = jnp.tile(bl, dl.shape[0])
+    p_lanes = jax.vmap(lambda d, b: simulation._scenario_point(
+        template, d, b, n_users))(dd, bb)
+    res, r = _run_lanes(g, fleet, p_lanes, n_users, max_events, max_jobs,
+                        batch)
+    if full:
+        ref = simulation.sweep(g, fleet, dl, bl, types.OPT_COST, n_users,
+                               scenario=scenario)
+        for f in ("n_done", "spent", "term_time", "n_steps", "n_spec",
+                  "n_reseeds", "n_scans", "n_events"):
+            a = np.asarray(getattr(ref, f)).reshape(
+                (dd.shape[0],) + np.asarray(getattr(r, f)).shape[1:])
+            assert np.array_equal(a, np.asarray(getattr(r, f))), (name, f)
+    lanes = _lane_results(res, r, full)
+    assert len({(x["term_time"][0], x["spent"][0]) for x in lanes}) > 1, \
+        f"{name}: every lane ends alike"
+    return {
+        "kind": "grid", "seed": seed, "n_users": n_users,
+        "n_jobs_per_user": n_jobs, "base_mi": 10_000.0,
+        "deadlines": _bits(dl), "budgets": _bits(bl), "scenario": knobs,
+        "opt": types.OPT_COST, "batch": batch, "max_events": max_events,
+        "max_jobs": max_jobs, "full": full,
+        "fleet": _fleet_fields(fleet, "wwg"),
+        "length_mi": _bits(g.length_mi), "lanes": lanes,
+    }
+
+
+def lane_cell(name, seed, n_users, n_jobs, base_mi, deadline, budget,
+              max_events, full, partitionable):
+    """``engine.run_sweep_lanes`` over ``Scenario(policy=)`` lanes, as
+    ``examples/table1_strategies.py`` and ``engine_bench._strategy_sweep``
+    call it (no job-slot bound: J = N); the gridlets drawn in the
+    ``partitionable`` threefry layout."""
+    fleet = resource.wwg_fleet()
+    with jax.threefry_partitionable(partitionable):
+        g = gridlet.task_farm(jax.random.PRNGKey(seed), n_jobs=n_jobs,
+                              n_users=n_users, base_mi=base_mi)
+    if max_events is None:
+        max_events = simulation._max_events(g.n, n_users, deadline, 1.0)
+    ps = [simulation._scenario_params(fleet, deadline, budget,
+                                      types.OPT_COST, n_users,
+                                      simulation.Scenario(policy=opt))
+          for _, opt in STRATEGIES]
+    p_lanes = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *ps)
+    batch = engine.DEFAULT_BATCH
+    res, r = _run_lanes(g, fleet, p_lanes, n_users, max_events, None, batch)
+    return {
+        "kind": "lanes", "seed": seed, "n_users": n_users,
+        "n_jobs_per_user": n_jobs, "base_mi": base_mi,
+        "partitionable": partitionable,
+        "deadline": deadline, "budget": budget,
+        "policies": [opt for _, opt in STRATEGIES],
+        "names": [n for n, _ in STRATEGIES],
+        "batch": batch, "max_events": max_events, "max_jobs": None,
+        "full": full, "fleet": _fleet_fields(fleet, "wwg"),
+        "length_mi": _bits(g.length_mi),
+        "lanes": _lane_results(res, r, full),
+    }
+
+
+def sweep_cells(names=None):
+    cells = {}
+    for c in SWEEP_CELLS:
+        if names is None or c[0] in names:
+            cells[c[0]] = sweep_cell(*c)
+            print(f"  {c[0]} done", flush=True)
+    for c in LANE_CELLS:
+        if names is None or c[0] in names:
+            cells[c[0]] = lane_cell(*c)
+            print(f"  {c[0]} done", flush=True)
+    return cells
+
+
 def _header(about):
     return {
         "_about": about + " (tests/data/gen_port_ref.py); floats as "
@@ -380,7 +540,7 @@ def _header(about):
     }
 
 
-def main(which=("main", "net", "fail", "rand", "econ")):
+def main(which=("main", "net", "fail", "rand", "econ", "sweep")):
     if "main" in which:
         ref = dict(_header("JAX reference results for the port's "
                            "main-path cells"),
@@ -423,7 +583,14 @@ def main(which=("main", "net", "fail", "rand", "econ")):
         with open(OUT_ECON, "w") as f:
             json.dump(ref, f, separators=(",", ":"))
         print(f"wrote {OUT_ECON}")
+    if "sweep" in which:
+        ref = dict(_header("JAX reference results for the port's "
+                           "sweep cells"), cells=sweep_cells())
+        with open(OUT_SWEEP, "w") as f:
+            json.dump(ref, f, separators=(",", ":"))
+        print(f"wrote {OUT_SWEEP}")
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("main", "net", "fail", "rand", "econ"))
+    main(tuple(sys.argv[1:]) or ("main", "net", "fail", "rand", "econ",
+                                 "sweep"))

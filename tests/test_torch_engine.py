@@ -1,22 +1,26 @@
 """The port's slices end to end against the JAX reference: the Table 1
 trace through ``run_direct``, live ``run_experiment`` runs of the
 economic broker under every optimisation mode at batch 1 and 8, the
-committed 1u_200j, contended-network, dynamic-resource and grid-economy
-references replayed on the CPU, the failure, recovery, trace and
+committed 1u_200j, contended-network, dynamic-resource, grid-economy
+and sweep references replayed on the CPU (the sweep through the
+lane-batched engine, every lane's "how" counters included), the failure, recovery, trace and
 failing-arrival applies and the broker's measurement and policy keys on
 hand-built states, the reference tests' reservation figures, the
 quickstart's and failure_recovery's figures, and batch 8 equal to
 batch 1.  Every integer, status, trace and float field is compared bit
 for bit."""
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import warnings
 
 import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import broker as jbroker
 from repro.core import des as jdes
@@ -56,6 +60,8 @@ REF_FAIL = os.path.join(os.path.dirname(__file__), "data",
                         "port_ref_fail.json")
 REF_ECON = os.path.join(os.path.dirname(__file__), "data",
                         "port_ref_econ.json")
+REF_SWEEP = os.path.join(os.path.dirname(__file__), "data",
+                         "port_ref_sweep.json")
 GRIDLET_FIELDS = ("status", "resource", "assigned", "remaining", "t_event",
                   "start", "finish", "returned", "cost", "n_retries")
 COUNTERS = ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
@@ -983,6 +989,17 @@ def _tiny():
 UNPORTED_SETTINGS = (
     dict(telemetry=16),
 )
+# the sweep engine's settings still to port (ROADMAP A7b)
+UNPORTED_SWEEP = (
+    dict(scenario=simulation.Scenario(mtbf=100.0)),
+    dict(scenario=simulation.Scenario(fault_trace=[(10.0, 0, 0)])),
+    dict(scenario=simulation.Scenario(reservations=[(7, 4, 0.0, 50.0)])),
+    dict(scenario=simulation.Scenario(pricing_model="commodity")),
+    dict(scenario=simulation.Scenario(pricing_model="auction")),
+    dict(scenario=simulation.Scenario(plan_ahead=True)),
+    dict(net_cap=None),
+    dict(net_cap=4),
+)
 
 
 def test_unported_settings_and_entry_points_raise():
@@ -991,10 +1008,17 @@ def test_unported_settings_and_entry_points_raise():
         with pytest.raises(NotImplementedError):
             simulation.run_experiment(g, fleet, 100.0, 100.0, device="cpu",
                                       **kw)
-    for fn in (simulation.sweep, simulation.sweep_sharded,
-               engine.run_inner, engine.run_sweep, engine.run_sweep_lanes):
+    for kw in UNPORTED_SWEEP:
         with pytest.raises(NotImplementedError):
-            fn(g, fleet)
+            simulation.sweep(g, fleet, [100.0], [100.0], device="cpu", **kw)
+        with pytest.raises(NotImplementedError):
+            simulation.sweep_sharded(g, fleet, [100.0], [100.0],
+                                     devices=["cpu"], **kw)
+    params = engine._stack([simulation._scenario_params(
+        fleet, 100.0, 100.0, 0, 1, None)])
+    with pytest.raises(NotImplementedError):
+        engine.run_sweep_lanes(g, fleet, params, 1, 64, telemetry=16,
+                               device="cpu")
 
 
 def test_cuda_by_default_raises_without_a_card():
@@ -1008,3 +1032,212 @@ def test_cuda_by_default_raises_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         types.resolve_device("cuda")
     assert types.INF == float("inf")
+
+
+# ----------------------------------------------------------------------
+# The sweep engine (lane-batched) against tests/data/port_ref_sweep.json
+# ----------------------------------------------------------------------
+
+SWEEP_CPU = ("sweep_1u_40j_3x3", "sweep_3u_8j_2x2", "strategies_1u_40j")
+SWEEP_HOW = ("n_events", "n_steps", "n_spec", "n_reseeds", "n_scans",
+             "overflow")
+
+
+def _sweep_inputs(c):
+    """A sweep record's gridlets and fleet."""
+    fl = c["fleet"]
+    fleet = resource.make_fleet(
+        fl["num_pe"], torch.from_numpy(_f32(fl["mips_per_pe"])),
+        torch.from_numpy(_f32(fl["cost_per_sec"])), fl["policy"],
+        time_zone=torch.from_numpy(_f32(fl["time_zone"])),
+        baud_rate=torch.from_numpy(_f32(fl["baud_rate"])))
+    u, nj = c["n_users"], c["n_jobs_per_user"]
+    g = gridlet.make_batch(
+        torch.from_numpy(_f32(c["length_mi"])),
+        user=torch.arange(u, dtype=torch.int32).repeat_interleave(nj))
+    return g, fleet
+
+
+def _check_sweep_lane(lane, want, how=True):
+    """One lane of a port result (ExperimentResult) against its record:
+    every "what" field bitwise, and the "how" counters."""
+    out = convert.to_numpy(lane)
+    for name in ("n_done", "spent", "term_time", "per_resource_done"):
+        _eq(out[name].reshape(-1), _f32(want[name]), name)
+    for got, name in zip(out["trace"], ("trace_t", "trace_kind",
+                                        "trace_who")):
+        _eq(got, _f32(want[name]) if name == "trace_t" else
+            np.asarray(want[name], np.int32), name)
+    for name in ("status", "resource"):
+        _eq(out["gridlets"][name], np.asarray(want[name], np.int32), name)
+    for name in ("start", "finish", "returned", "cost"):
+        _eq(out["gridlets"][name], _f32(want[name]), name)
+    for name in SWEEP_HOW if how else ("n_events", "overflow"):
+        assert int(out[name]) == want[name], name
+    assert bool(out["truncated"]) == want["truncated"]
+
+
+def _flat_lanes(out):
+    """A [D, B] grid result as one lane axis (deadline-major)."""
+    return engine._tree_map(lambda x: x.reshape((-1,) + x.shape[2:]), out)
+
+
+def _jax_lane_params(c, fleet):
+    """The strategy lanes' params as the reference stacks them
+    (``examples/table1_strategies.lane_params``), carried across with
+    ``convert.params``."""
+    import jax.numpy as jnp
+    jfleet = jres.wwg_fleet()
+    ps = [jsim._scenario_params(jfleet, c["deadline"], c["budget"],
+                                jtypes.OPT_COST, c["n_users"],
+                                jsim.Scenario(policy=opt))
+          for opt in c["policies"]]
+    lanes = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *ps)
+    return convert.params(_leaves(lanes))
+
+
+def _table1_rows():
+    """The rows of the table in examples/table1_strategies.py's header."""
+    import re
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "examples",
+                        "table1_strategies.py")
+    with open(path) as f:
+        return dict(re.findall(
+            r"^ +(cost|time|cost-time|none) +(done .*)$", f.read(), re.M))
+
+
+@contextlib.contextmanager
+def _vmap_fallbacks_fail():
+    """vmap's per-lane fallback (an op without a batching rule) warns,
+    and the warning is an error."""
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+
+
+@pytest.mark.parametrize("name", SWEEP_CPU)
+def test_committed_sweep_reference_replays_on_cpu(name):
+    """The CPU cells of tests/data/port_ref_sweep.json: the grids through
+    ``simulation.sweep`` and the strategy lanes through
+    ``engine.run_sweep_lanes`` (on the reference's own lane params,
+    carried across by ``convert.params``), with vmap's fallback an
+    error.  Every lane bitwise, its "how" counters equal; two lanes of
+    the 3 x 3 grid (the tightest and the loosest) equal the port's own
+    ``run_experiment``; the strategy rows are the table in
+    examples/table1_strategies.py's header."""
+    with open(REF_SWEEP) as f:
+        c = json.load(f)["cells"][name]
+    g, fleet = _sweep_inputs(c)
+    with _vmap_fallbacks_fail():
+        if c["kind"] == "grid":
+            out = _flat_lanes(simulation.sweep(
+                g, fleet, _f32(c["deadlines"]), _f32(c["budgets"]),
+                opt=c["opt"], n_users=c["n_users"],
+                scenario=simulation.Scenario(**c["scenario"]),
+                device="cpu"))
+        else:
+            params = _jax_lane_params(c, fleet)
+            mine = engine._stack([simulation._scenario_params(
+                fleet, c["deadline"], c["budget"], types.OPT_COST,
+                c["n_users"], simulation.Scenario(policy=opt))
+                for opt in c["policies"]])
+            for f in dataclasses.fields(params):
+                a, b = getattr(params, f.name), getattr(mine, f.name)
+                assert (a is None) == (b is None), f.name
+                if a is not None:
+                    _eq(a, b, f"lane params {f.name}")
+            res = engine.run_sweep_lanes(g, fleet, params, c["n_users"],
+                                         c["max_events"], c["max_jobs"],
+                                         batch=c["batch"], device="cpu")
+            out = simulation.summarize(res, params, c["n_users"],
+                                             fleet.r, c["max_events"])
+    assert out.spent.shape[0] == len(c["lanes"])
+    for i, want in enumerate(c["lanes"]):
+        _check_sweep_lane(engine._lane(out, i), want)
+    if name == "sweep_1u_40j_3x3":
+        for i in (0, len(c["lanes"]) - 1):
+            d = _f32(c["deadlines"])[i // 3]
+            b = _f32(c["budgets"])[i % 3]
+            one = simulation.run_experiment(g, fleet, float(d), float(b),
+                                            opt=c["opt"], device="cpu")
+            _check_sweep_lane(one, c["lanes"][i], how=False)
+    if c["kind"] == "lanes":
+        rows = _table1_rows()
+        assert len(rows) == 4
+        for i, strategy in enumerate(c["names"]):
+            lane = engine._lane(out, i)
+            done = int((lane.gridlets.status == types.DONE).sum())
+            assert rows[strategy] == (
+                f"done {done}/{g.n}  t={float(lane.term_time[0]):7.1f}  "
+                f"spent {float(lane.spent[0]):5.0f}"), strategy
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the operations dispatched (one launch each on the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types=(), args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_sweep_entry_points_on_the_port(monkeypatch):
+    """``sweep_sharded`` over two CPU devices on the 3 x 3 grid (9 lanes
+    padded to 10), and ``sweep(select_free=False)`` (each point through
+    ``run_inner``) on the 2 x 2 grid, give every lane's "what" fields as
+    recorded; ``run_sweep`` and ``run_inner`` give ``run``'s on one lane;
+    and lanes do not multiply work on the host: four copies of a lane
+    dispatch exactly the operations and host reads of two copies."""
+    with open(REF_SWEEP) as f:
+        cells = json.load(f)["cells"]
+    c = cells["sweep_1u_40j_3x3"]
+    g, fleet = _sweep_inputs(c)
+    out = _flat_lanes(simulation.sweep_sharded(
+        g, fleet, _f32(c["deadlines"]), _f32(c["budgets"]), opt=c["opt"],
+        devices=["cpu", "cpu"]))
+    for i, want in enumerate(c["lanes"]):
+        _check_sweep_lane(engine._lane(out, i), want)
+
+    c = cells["sweep_3u_8j_2x2"]
+    g, fleet = _sweep_inputs(c)
+    u = c["n_users"]
+    scenario = simulation.Scenario(**c["scenario"])
+    out = _flat_lanes(simulation.sweep(
+        g, fleet, _f32(c["deadlines"]), _f32(c["budgets"]), opt=c["opt"],
+        n_users=u, scenario=scenario, select_free=False, device="cpu"))
+    for i, want in enumerate(c["lanes"]):
+        _check_sweep_lane(engine._lane(out, i), want, how=False)
+
+    params = simulation._scenario_params(fleet, 1400.0, 6000.0, c["opt"], u,
+                                         scenario)
+    args = (g, fleet, params, u, c["max_events"], c["max_jobs"])
+    ref = engine.run(*args, device="cpu")
+    _assert_same_run(engine.run_sweep(*args, device="cpu"), ref,
+                     counters=("n_events", "overflow"))
+    _assert_same_run(engine.run_inner(*args, device="cpu"), ref,
+                     counters=("n_events", "overflow"))
+
+    counts = []
+    step = engine._step_sweep_lanes
+
+    def counted(*a, **kw):
+        with _CountOps() as m:
+            out = step(*a, **kw)
+        counts[-1].n += m.n
+        return out
+
+    monkeypatch.setattr(engine, "_step_sweep_lanes", counted)
+    for n_lanes in (2, 4):
+        counts.append(_CountOps())
+        res = engine.run_sweep_lanes(*args[:2], engine._stack(
+            [params] * n_lanes), u, 40, c["max_jobs"], device="cpu")
+        counts[-1].syncs = res.host_syncs
+    assert counts[0].n == counts[1].n and counts[0].n > 0
+    assert counts[0].syncs == counts[1].syncs

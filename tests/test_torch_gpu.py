@@ -3,8 +3,9 @@ version (bitwise, but for ssd_scan and flash_attention, held at the
 reference's kernel-vs-oracle tolerances), the threefry draws on the card
 equal to the CPU's, and small experiments (analytic links, contended
 links behind a trunk, failure streams and a fault trace, reservation
-windows, pricing and the plan-ahead broker) on the card equal to the
-same experiments on the CPU.  Marked ``gpu``; where ``torch.cuda`` is not
+windows, pricing and the plan-ahead broker, a deadline x budget sweep
+and strategy lanes through the lane-batched engine) on the card equal
+to the same experiments on the CPU.  Marked ``gpu``; where ``torch.cuda`` is not
 available every test skips.  Run on a card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -339,7 +340,8 @@ def _check_card_tensors_never_reach_the_plain_versions(cuda):
     q = torch.ones((1, 2, 40, 32), device=cuda)
     ops.flash_attention(q, q, q)
     assert ek.PLAIN_CALLS == dict.fromkeys(ek.PLAIN_CALLS, 0)
-    assert ek.LAUNCHES == dict.fromkeys(ek.LAUNCHES, 1)
+    assert ek.LAUNCHES == dict.fromkeys(ek.LAUNCHES, 1) | dict.fromkeys(
+        ("event_scan_lanes", "event_frontier_lanes"), 0)
 
 
 def test_kernels_match_plain_on_the_card(cuda):
@@ -508,3 +510,80 @@ def test_threefry_and_dynamic_resources_on_the_card_equal_cpu(cuda):
                 for d in ("cpu", cuda)]
         _same_runs(runs)
         assert int(runs[0].n_failed) > 0
+
+
+def _check_lane_kernels(cuda):
+    """The lane forms against their plain versions: the checked scan over
+    three lanes (the carry kept, its flag off, a carry failing in one
+    row) with and without the reseed, also through a Scratch twice; the
+    frontier over three lanes with and without cuts, and through a
+    Scratch."""
+    cases = [_checked_case(16, 32, seed, cuda) for seed in (1, 2, 3)]
+    args = [torch.stack(x) for x in zip(*(a for a, _ in cases))]
+    rank = torch.stack([c[k] for (_, c), k in zip(cases, ("kept", "kept",
+                                                          "one row"))])
+    flag = torch.tensor([True, False, True], device=cuda)
+    scratch = ek.Scratch()
+    for reseed in (True, False):
+        want, use = ek.event_scan_checked_lanes_ref(*args, rank, flag,
+                                                    reseed=reseed)
+        assert use.tolist() == [True, False, False]
+        for sc in (None, scratch, scratch):
+            got, got_use = ek.event_scan_checked_lanes_cuda(
+                *args, rank, flag, reseed=reseed, scratch=sc)
+            assert all(_bits_equal(a, b) for a, b in zip(want, got))
+            assert _bits_equal(use, got_use)
+    sizes = (16, 11, 11, 1, 0, 1, 1, 0, 200, 200, 11, 1)
+    g = torch.Generator().manual_seed(7)
+    cand = torch.floor(torch.rand((3, sum(sizes)), generator=g) * 30.0)
+    cand[torch.rand(cand.shape, generator=g) < 0.5] = float("inf")
+    cand = cand.to(cuda)
+    cuts = (torch.rand(cand.shape, generator=g) < 0.5).to(cuda)
+    for use in (None, cuts):
+        want = ek.event_frontier_lanes_ref(cand, sizes, use)
+        got = ek.event_frontier_lanes_cuda(cand, sizes, use)
+        assert all(_bits_equal(a, b) for a, b in zip(want, got))
+    want = ek.event_frontier_lanes_ref(cand, sizes)
+    for _ in range(3):
+        got = ek.event_frontier_lanes_cuda(cand, sizes, scratch=scratch)
+        assert all(_bits_equal(a, b) for a, b in zip(want, got))
+
+
+def test_sweep_on_the_card_equals_cpu(cuda):
+    """The lane kernels against their plain versions, then a 2 x 2
+    deadline x budget sweep (coarse polls) and the four strategy lanes
+    through the lane-batched engine: the card's lanes equal the CPU's,
+    "how" counters included, and the card launched both lane kernels."""
+    _check_lane_kernels(cuda)
+    farm = gridlet.task_farm(rand.PRNGKey(5), n_jobs=8, n_users=3)
+    fleet = resource.wwg_fleet()
+    coarse = simulation.Scenario(sched_min_period=10.0, sched_frac=0.05)
+    runs = []
+    for d in ("cpu", cuda):
+        ek.reset_counts()
+        runs.append(simulation.sweep(farm, fleet, [700.0, 1400.0],
+                                     [6000.0, 14000.0], n_users=3,
+                                     scenario=coarse, device=d))
+    assert ek.LAUNCHES["event_scan_lanes"] > 0
+    assert ek.LAUNCHES["event_frontier_lanes"] > 0
+    assert ek.PLAIN_CALLS == dict.fromkeys(ek.PLAIN_CALLS, 0)
+    for name in ("n_done", "spent", "term_time", "per_resource_done",
+                 "n_steps", "n_spec", "n_reseeds", "n_scans", "n_events"):
+        assert _bits_equal(getattr(runs[0], name), getattr(runs[1], name))
+    for name in ("status", "resource", "finish", "returned", "cost"):
+        assert _bits_equal(getattr(runs[0].gridlets, name),
+                           getattr(runs[1].gridlets, name))
+    for a, b in zip(runs[0].trace, runs[1].trace):
+        assert _bits_equal(a, b)
+    from repro_torch.core import engine
+    farm = gridlet.task_farm(rand.PRNGKey(9), n_jobs=12, base_mi=50_000.0)
+    params = engine._stack([simulation._scenario_params(
+        fleet, 1200.0, 30_000.0, types.OPT_COST, 1,
+        simulation.Scenario(policy=opt)) for opt in range(4)])
+    lanes = [engine.run_sweep_lanes(farm, fleet, params, 1, 2048, device=d)
+             for d in ("cpu", cuda)]
+    for name in ("spent", "term_time", "n_events", "n_steps", "n_spec",
+                 "n_reseeds", "n_scans"):
+        assert _bits_equal(getattr(lanes[0], name), getattr(lanes[1], name))
+    for a, b in zip(lanes[0].trace, lanes[1].trace):
+        assert _bits_equal(a, b)

@@ -1,7 +1,9 @@
 """The port's kernel module (repro_torch.kernels) against the JAX
 reference: the plain PyTorch versions of ``event_scan``,
 ``event_scan_slab``, ``link_scan`` and ``event_frontier`` must equal the
-Pallas kernels (interpret mode) and the XLA paths bit for bit; those of
+Pallas kernels (interpret mode) and the XLA paths bit for bit (the
+sweep engine's lane forms of the checked scan and the frontier equal
+their one-lane forms per lane and ``jax.vmap`` of the reference's); those of
 ``ssd_scan`` and ``flash_attention`` must agree with the Pallas kernels
 and the reference's oracles within the reference's own kernel-vs-oracle
 tolerances.  The CUDA kernels themselves run only on a card:
@@ -392,6 +394,80 @@ def test_event_frontier_plain_matches_pallas_and_xla():
         _check_frontier(sizes)
 
 
+def test_lane_forms_match_per_lane_and_jax_vmap():
+    """The sweep engine's lane forms: ``event_scan_checked_lanes_ref``
+    over 4 lanes (the carry kept, its flag off, a carry failing in one
+    row, kept again), with and without the reseed, against the one-lane
+    ``event_scan_checked_ref`` of each lane and against ``jax.vmap`` of
+    the reference's select-free composition (``_partition_ok``, the
+    lexsort, ``event_scan_xla``); ``event_frontier_lanes_ref`` over 3
+    lanes of every layout against ``event_frontier_ref`` per lane and
+    ``jax.vmap`` of the reference's ``ops.event_frontier`` (XLA path);
+    every output bitwise."""
+    r, j = 8, 33
+    lanes = [_checked_case(r, j, seed) for seed in (1, 2, 3, 4)]
+    choice = (("kept", True), ("kept", False), ("one row", True),
+              ("kept", True))
+    ins = [np.stack(x) for x in zip(*(case for case, _ in lanes))]
+    rank = np.stack([c[k] for (_, c), (k, _) in zip(lanes, choice)])
+    flag = np.array([f for _, f in choice])
+    rg, remaining, mips, npe, pol, blk, ok = ins
+
+    def jax_lane(rg, remaining, mips, npe, pol, blk, ok, rank, flag,
+                 reseed):
+        rem, tie = _jax_table(rg, remaining)
+        npe_e, valid, g = jax_event._row_masks(
+            rem, npe[:, None], pol[:, None], blk[:, None], ok[:, None])
+        use = flag & jax_engine._partition_ok(rem, tie, valid, rank, npe_e,
+                                              g, pol[:, None])
+        fresh = jax_event._lexsort_rank(rem, tie, valid)[0]
+        out = jax_event.event_scan_xla(
+            rem, mips, npe, tie=tie, policy=pol, pe_blocked=blk, row_ok=ok,
+            rank=jnp.where(use, rank, fresh) if reseed else rank,
+            with_rank=True)
+        return out, use
+
+    args = [torch.from_numpy(x) for x in ins]
+    for reseed in (True, False):
+        port, use = ek.event_scan_checked_lanes_ref(
+            *args, torch.from_numpy(rank), torch.from_numpy(flag),
+            reseed=reseed)
+        want, want_use = jax.vmap(
+            lambda *a: jax_lane(*a, reseed))(*ins, rank, flag)
+        _assert_bitwise(port, want, NAMES)
+        assert use.tolist() == np.asarray(want_use).tolist() == \
+            [True, False, False, True]
+        for lane in range(4):
+            count = torch.zeros((), dtype=torch.int32)
+            one = ek.event_scan_checked_ref(
+                *(a[lane] for a in args), torch.from_numpy(rank[lane]),
+                torch.tensor(flag[lane]), count)
+            if reseed or use[lane]:
+                _assert_bitwise([x[lane] for x in port], one, NAMES)
+            assert int(count) == int(~use[lane])
+
+    names = ("t_star", "fired", "counts", "t_safe", "mins")
+    for sizes in FRONTIER_LAYOUTS:
+        cases = [_frontier_case(sizes, seed) for seed in (5, 6, 7)]
+        cand = np.stack([c for c, _ in cases])
+        cuts = np.stack([k for _, k in cases])
+        for use_cuts in (None, cuts):
+            tc = None if use_cuts is None else torch.from_numpy(use_cuts)
+            port = ek.event_frontier_lanes_ref(torch.from_numpy(cand), sizes,
+                                               tc)
+            jc = None if use_cuts is None else use_cuts.astype(np.float32)
+            want = jax.vmap(lambda c, k: jax_ops.event_frontier(
+                c, sizes, k, interpret=None), in_axes=(0, None if jc is None
+                                                        else 0))(cand, jc)
+            _assert_bitwise(port, want, names)
+            for lane in range(3):
+                one = ek.event_frontier_ref(
+                    torch.from_numpy(cand[lane]), sizes,
+                    None if tc is None else tc[lane])
+                _assert_bitwise([x[lane] for x in port], one, names)
+    jax.clear_caches()
+
+
 def _slab_case(r, j, seed):
     """The reference's slab case: empty slots, integer remaining values
     on odd seeds (ties within and across rows), a permuted tie key,
@@ -622,7 +698,8 @@ def test_cpu_tensors_route_to_plain_versions():
     ops.flash_attention(q, q, q)
     assert ek.PLAIN_CALLS == dict.fromkeys(
         ("event_scan", "event_frontier", "link_scan", "event_scan_slab",
-         "ssd_scan", "flash_attention"), 1)
+         "ssd_scan", "flash_attention"), 1) | dict.fromkeys(
+        ("event_scan_lanes", "event_frontier_lanes"), 0)
     assert ek.LAUNCHES == dict.fromkeys(ek.PLAIN_CALLS, 0)
     # one pair of counters, shared by every kernel module
     assert sk.LAUNCHES is ek.LAUNCHES and fk.PLAIN_CALLS is ek.PLAIN_CALLS
@@ -636,6 +713,13 @@ def test_cpu_tensors_route_to_plain_versions():
             torch.zeros((8, 4), dtype=torch.int32), *[torch.ones(8)] * 6,
             torch.zeros((8, 4)), torch.tensor(True),
             torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ek.event_scan_checked_lanes_cuda(
+            torch.zeros((2, 8, 4), dtype=torch.int32), torch.ones(2, 9),
+            *[torch.ones(2, 8)] * 5, torch.zeros((2, 8, 4)),
+            torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        ek.event_frontier_lanes_cuda(torch.ones(2, 4), (1, 3))
     with pytest.raises(ValueError):
         ek.link_scan_cuda(torch.ones(8, 4), torch.ones(8))
     with pytest.raises(ValueError):
